@@ -1,21 +1,29 @@
 """Carry the reference's state into the port.
 
-This slice has no learned weights: its parameters are the slice tables,
-the migration model and the placement plan. `from_reference_arrays`
-takes those as the reference hands them out, as plain numpy arrays and
-Python values (for example ``vars(plan)`` of a reference
+`from_reference_arrays`: the fleet sweep has no learned weights; its
+parameters are the slice tables, the migration model and the placement
+plan. It takes those as the reference hands them out, as plain numpy
+arrays and Python values (for example ``vars(plan)`` of a reference
 `PlacementPlan` and ``vars(tables)`` of its `FamilyTables`), and
 returns the port's objects, so a plan computed on one side drives the
 other side's fleet scan.
+
+`from_reference_params`: a model's parameters, as the reference's
+nested dict of arrays (for example ``jax.tree.map(np.asarray, params)``),
+checked leaf by leaf against the port's specs and returned as tensors.
 """
 from __future__ import annotations
 
 from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.cluster.placement import PlacementPlan
 from repro_torch.cluster.slices import FamilyTables
+from repro_torch.device import resolve_device
+from repro_torch.models.api import get_model
+from repro_torch.models.params import DTYPES, flatten, unflatten
 
 
 def from_reference_arrays(plan: Optional[Mapping] = None,
@@ -56,3 +64,26 @@ def from_reference_arrays(plan: Optional[Mapping] = None,
             names=tuple(tables["names"]),
             well_formed=bool(tables["well_formed"]))
     return out_plan, out_tables
+
+
+def from_reference_params(cfg, tree: Mapping, device="cuda") -> dict:
+    """The reference's parameter tree for `cfg` (nested dicts of numpy
+    arrays) as the port's parameter dict on `device`. Every leaf of the
+    port's `specs(cfg)` must be present with its shape, and nothing else."""
+    dev = resolve_device(device)
+    spec_tree = get_model(cfg).specs()
+    specs = dict(flatten(spec_tree))
+    given = dict(flatten(tree))
+    if set(given) != set(specs):
+        raise ValueError(f"parameter paths differ: missing "
+                         f"{sorted(set(specs) - set(given))}, unexpected "
+                         f"{sorted(set(given) - set(specs))}")
+    leaves = {}
+    for path, spec in specs.items():
+        arr = np.asarray(given[path], dtype=np.float32)
+        if arr.shape != tuple(spec.shape):
+            raise ValueError(f"{path}: shape {arr.shape}, expected "
+                             f"{tuple(spec.shape)}")
+        leaves[path] = torch.from_numpy(arr.copy()).to(
+            device=dev, dtype=DTYPES[spec.dtype])
+    return unflatten(spec_tree, leaves)

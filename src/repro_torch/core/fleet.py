@@ -50,9 +50,9 @@ _PEAK_WINDOW = 6          # rolling demand-peak window (ContainerState default)
 def _not_yet(**layers):
     """Raise for a layer a later slice of the port brings (ROADMAP.md,
     Queue 1)."""
-    fault = "5 (fault split and planner retry carry)"
-    items = {"traffic": "6 (traffic fold)", "energy": "7 (energy fold)",
-             "elasticity": "8 (elasticity scan)", "faults": fault,
+    fault = "9 (fault split and planner retry carry)"
+    items = {"traffic": "10 (traffic fold)", "energy": "11 (energy fold)",
+             "elasticity": "12 (elasticity scan)", "faults": fault,
              "carbon_obs": fault, "power_gap": fault}
     for name, value in layers.items():
         if value is not None:

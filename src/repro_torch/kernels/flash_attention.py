@@ -1,0 +1,105 @@
+"""Forward GQA flash attention: the CUDA kernel and its plain PyTorch
+version.
+
+`flash_attention` replaces the Pallas TPU kernel of the same name
+(`src/repro/kernels/flash_attention.py:78`). On a CUDA tensor it
+launches the hand-written sm_90a kernel in ``csrc/flash_attention.cu``
+(one launch; see the source for the design and its bound) or raises. On
+a CPU tensor it runs `flash_attention_torch`, the plain version, which is
+`attention_ref`; the plain version is also what the kernel is held
+against on the card.
+
+`flash_attention.launches` counts kernel launches; CPU calls do not
+count.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from repro_torch import cuda_build
+from repro_torch.kernels.ref import attention_ref
+
+HEAD_DIMS = (16, 32, 64, 128, 256)      # templates in the CUDA source
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
+                          scale: Optional[float] = None):
+    """Plain PyTorch version of `flash_attention` (same contract)."""
+    return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention takes q (B,Sq,Hq,Dh) and k, v "
+                         "(B,Skv,Hkv,Dh)")
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    if tuple(k.shape) != (B, Skv, Hkv, Dh) or v.shape != k.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not agree")
+    if Hkv == 0 or Hq % Hkv:
+        raise ValueError(f"Hq = {Hq} is not a multiple of Hkv = {Hkv}")
+    if Sq == 0 or Skv == 0:
+        raise ValueError("flash_attention needs Sq >= 1 and Skv >= 1")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, one "
+                         f"dtype for q, k, v; got {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("q, k and v must be on one device")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+
+
+@functools.cache
+def _library():
+    """The built kernel library with its C signature declared."""
+    lib = cuda_build.load("flash_attention")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
+                                        i, ctypes.c_float, p]
+    lib.flash_attention_fwd.restype = i
+    return lib
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q (B,Sq,Hq,Dh); k, v (B,Skv,Hkv,Dh) -> (B,Sq,Hq,Dh) in q's dtype.
+
+    Causal and sliding-window (``window > 0``: keys within the last
+    `window` positions) masks; scale defaults to Dh**-0.5. float32 or
+    bfloat16, contiguous, Dh in {16, 32, 64, 128, 256} on the card.
+    """
+    _check(q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, causal=causal, window=window,
+                                     scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"the CUDA kernel takes Dh in {HEAD_DIMS}, got {Dh}")
+    scale = scale if scale is not None else Dh ** -0.5
+    lib = _library()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            DTYPE_CODES[q.dtype], B, Sq, Skv, Hq, Hkv, Dh, int(bool(causal)),
+            int(window), float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

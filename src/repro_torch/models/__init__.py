@@ -1,0 +1,5 @@
+"""Model substrate of the port: the dense transformer (more families in
+later slices), as plain functions on parameter dicts."""
+from repro_torch.models.api import Model, get_model
+
+__all__ = ["get_model", "Model"]

@@ -1,0 +1,71 @@
+"""Model facade (the reference's `src/repro/models/api.py`), dense
+family only so far:
+
+    m = get_model(cfg)
+    params = m.init(seed, device="cuda")
+    logits, cache = m.prefill(params, {"tokens": tokens}, pad_to=n)
+    logits, cache = m.decode(params, cache, tokens)
+
+The other families raise `NotImplementedError` naming the ROADMAP item
+that brings them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.config import DENSE, ENCDEC, HYBRID, MOE, SSM, ModelConfig
+from repro_torch.models import params as PT
+from repro_torch.models import transformer
+
+_LATER = {
+    SSM: "ROADMAP.md Queue 1 item 6 (Mamba-2 serving with the SSD kernel)",
+    HYBRID: "ROADMAP.md Queue 1 item 7 (RecurrentGemma with the RG-LRU "
+            "kernel)",
+    MOE: "ROADMAP.md Queue 1 item 13 (MoE and encoder-decoder families)",
+    ENCDEC: "ROADMAP.md Queue 1 item 13 (MoE and encoder-decoder families)",
+}
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+
+    def __post_init__(self):
+        if self.cfg.family != DENSE:
+            raise NotImplementedError(
+                f"the {self.cfg.family!r} family is not ported yet "
+                f"({_LATER[self.cfg.family]})")
+
+    # -- parameters ---------------------------------------------------------
+    def specs(self):
+        return transformer.specs(self.cfg)
+
+    def init(self, generator=None, device="cuda"):
+        """Seeded parameters (`generator`: a torch.Generator or an int)."""
+        return PT.init_params(self.specs(), generator, device)
+
+    def param_count(self) -> int:
+        return PT.param_count_tree(self.specs())
+
+    def prepare(self, params):
+        return transformer.prepare(self.cfg, params)
+
+    # -- compute ------------------------------------------------------------
+    def prefill(self, params, batch, pad_to: int = 0):
+        return transformer.prefill(self.cfg, params, batch, pad_to=pad_to)
+
+    def decode(self, params, cache, tokens):
+        return transformer.decode_step(self.cfg, params, cache, tokens)
+
+    # -- caches --------------------------------------------------------------
+    def cache_specs(self, batch: int, max_seq: int):
+        return transformer.cache_specs(self.cfg, batch, max_seq)
+
+    def init_cache(self, batch: int, max_seq: int, device="cuda"):
+        cache = PT.init_params(self.cache_specs(batch, max_seq), 0, device)
+        cache["pos"] = 0
+        return cache
+
+
+def get_model(cfg: ModelConfig) -> Model:
+    return Model(cfg)

@@ -1,0 +1,106 @@
+"""ParamSpec trees: one declaration drives init and parameter counts.
+
+Each module declares its parameters as a nested dict of ``ParamSpec``
+leaves, as in the reference. `init_params` draws the reference's
+distributions for the dense family (zeros, ones, normal·scale,
+normal/√fan_in; the SSM and RG-LRU initialisers come with their
+families) with one ``torch.Generator`` per leaf, seeded from
+the caller's seed and the same crc32 salt of the leaf's path
+("layers/attn/wq"). It cannot reproduce JAX's random stream and does not
+try: parity tests carry the reference's arrays across
+(`repro_torch.convert.from_reference_params`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from dataclasses import dataclass
+
+import torch
+
+from repro_torch.device import resolve_device
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int32": torch.int32}
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: tuple
+    axes: tuple                    # logical axes, len == len(shape)
+    init: str = "normal"           # normal | zeros | ones | scaled
+    scale: float = 0.02
+    dtype: str = "float32"
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn, tree):
+    """Apply `fn` to every leaf of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def flatten(tree, prefix=""):
+    """[(path, leaf)] of a nested dict, paths as "a/b/c", keys sorted as
+    JAX flattens a dict."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out = []
+    for k in sorted(tree):
+        out += flatten(tree[k], f"{prefix}/{k}" if prefix else str(k))
+    return out
+
+
+def stack_specs(n: int, tree):
+    """Prepend a 'layers' axis of size n to every spec in the tree."""
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=(n,) + s.shape, axes=("layers",) + s.axes), tree)
+
+
+def _init_leaf(spec: ParamSpec, gen: torch.Generator, dev) -> torch.Tensor:
+    dtype = DTYPES[spec.dtype]
+    f32 = dict(dtype=torch.float32, device=dev, generator=gen)
+    if spec.init == "zeros":
+        return torch.zeros(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "scaled":  # normal / sqrt(fan_in); fan_in = shape[-2]
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        return (torch.randn(spec.shape, **f32) / math.sqrt(fan_in)).to(dtype)
+    if spec.init == "normal":
+        return (torch.randn(spec.shape, **f32) * spec.scale).to(dtype)
+    raise ValueError(f"unknown init {spec.init!r}")
+
+
+def init_params(spec_tree, generator=None, device="cuda"):
+    """Materialize a ParamSpec tree on `device`. `generator` is a
+    ``torch.Generator`` or an int seed (default 0); each leaf draws from
+    its own generator seeded by (seed, crc32 of its path)."""
+    dev = resolve_device(device)
+    if isinstance(generator, torch.Generator):
+        seed = generator.initial_seed()
+    else:
+        seed = int(generator or 0)
+    leaves = {}
+    for path, spec in flatten(spec_tree):
+        salt = zlib.crc32(path.encode()) % (2**31)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(((seed % 2**32) << 31) | salt)
+        leaves[path] = _init_leaf(spec, gen, dev)
+    return unflatten(spec_tree, leaves)
+
+
+def unflatten(tree, leaves: dict, prefix=""):
+    """A nested dict shaped as `tree` holding ``leaves[path]``."""
+    if not isinstance(tree, dict):
+        return leaves[prefix]
+    return {k: unflatten(v, leaves, f"{prefix}/{k}" if prefix else str(k))
+            for k, v in tree.items()}
+
+
+def param_count_tree(spec_tree) -> int:
+    return sum(math.prod(s.shape) for _, s in flatten(spec_tree))

@@ -1,0 +1,168 @@
+"""Decoder-only transformer, dense family: parameter specs, prefill and
+decode (the reference's `src/repro/models/transformer.py`).
+
+The reference scans the layers (``lax.scan``) over parameters stacked on
+a leading ``L`` axis; the port keeps the stacked layout and loops over
+``L`` in Python. Numerics follow the reference exactly:
+
+- with ``cast_weights`` the whole ``layers`` subtree, the ``ln1``/``ln2``
+  norm scales included, runs in the activation dtype; ``final_norm``
+  stays float32;
+- the embedding is gathered and then cast; ``unembed`` casts the
+  (tied) embedding to the activation dtype, so the logits are in that
+  dtype (bfloat16 by default).
+
+`prepare` does those casts once, for a server that calls prefill and
+decode many times: a cast of a tensor already in the target dtype is
+free, and casting before a gather equals casting after it, so prefill
+and decode give the same numbers on prepared and on master parameters.
+
+The decode step writes the new key and value into the cache in place
+(the reference returns an updated copy); the returned cache holds the
+same tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.config import DENSE, ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.models.cache import kv_cache_specs
+from repro_torch.models.params import DTYPES, ParamSpec, stack_specs, tree_map
+
+
+# ---------------------------------------------------------------------------
+# Parameter specs
+# ---------------------------------------------------------------------------
+
+def layer_specs(cfg: ModelConfig) -> dict:
+    if cfg.family != DENSE:
+        raise NotImplementedError(f"family {cfg.family!r}: the port's "
+                                  f"transformer runs the dense family only")
+    return {
+        "ln1": L.norm_specs(cfg.d_model, cfg.norm_kind),
+        "attn": L.attention_specs(cfg),
+        "ln2": L.norm_specs(cfg.d_model, cfg.norm_kind),
+        "mlp": L.mlp_specs(cfg),
+    }
+
+
+def specs(cfg: ModelConfig) -> dict:
+    out = {
+        "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("tp", "fsdp"),
+                           init="normal"),
+        "final_norm": L.norm_specs(cfg.d_model, cfg.norm_kind),
+        "layers": stack_specs(cfg.n_layers, layer_specs(cfg)),
+    }
+    if not cfg.tie_embeddings:
+        out["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_size),
+                                   ("fsdp", "tp"), init="scaled")
+    return out
+
+
+def prepare(cfg: ModelConfig, params: dict) -> dict:
+    """The parameters as prefill and decode use them, cast once: the
+    embeddings and (with ``cast_weights``) the layers in the activation
+    dtype, ``final_norm`` as it is."""
+    dtype = DTYPES[cfg.dtype]
+    out = dict(params)
+    out["embed"] = params["embed"].to(dtype)
+    if "unembed" in params:
+        out["unembed"] = params["unembed"].to(dtype)
+    if cfg.cast_weights:
+        out["layers"] = L.cast_tree(params["layers"], dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+
+def embed_tokens(cfg: ModelConfig, params: dict,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+
+
+def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    dtype = DTYPES[cfg.dtype]
+    if cfg.tie_embeddings:
+        return x.to(dtype) @ params["embed"].to(dtype).T
+    return x.to(dtype) @ params["unembed"].to(dtype)
+
+
+def _layer_body(cfg: ModelConfig, x, lp, positions, attn_fn):
+    h = L.apply_norm(x, lp["ln1"], cfg.norm_eps)
+    q, k, v = L.qkv_project(cfg, lp["attn"], h, positions)
+    o = attn_fn(q, k, v)
+    x = x + L.output_project(cfg, lp["attn"], o)
+    h = L.apply_norm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.mlp(h, lp["mlp"], cfg.mlp_variant, DTYPES[cfg.dtype])
+
+
+def _run_layers(cfg: ModelConfig, params: dict) -> dict:
+    if cfg.cast_weights:
+        return L.cast_tree(params["layers"], DTYPES[cfg.dtype])
+    return params["layers"]
+
+
+def _layer(layers: dict, i: int) -> dict:
+    return tree_map(lambda t: t[i], layers)
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode
+# ---------------------------------------------------------------------------
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict,
+            pad_to: int = 0) -> tuple:
+    """Process full prompts; return (last-position logits (B,V), cache).
+
+    ``pad_to``: total cache capacity (>= S) so that decode steps have
+    slots to write.
+    """
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)
+    cap = max(pad_to, S)
+    kv_shape = (cfg.n_layers, B, cfg.n_kv_heads, cap, cfg.head_dim)
+    ck = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
+    cv = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
+    layers = _run_layers(cfg, params)
+    for i in range(cfg.n_layers):
+        def attn_fn(q, k, v, i=i):
+            ck[i, :, :, :S] = k.transpose(1, 2)      # cache layout (B,Hkv,S,Dh)
+            cv[i, :, :, :S] = v.transpose(1, 2)
+            return L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        x = _layer_body(cfg, x, _layer(layers, i), positions, attn_fn)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(cfg, params, x[:, -1:, :])[:, 0]
+    return logits, {"k": ck, "v": cv, "pos": S}
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor) -> tuple:
+    """One decode step. tokens (B,); returns (logits (B,V), cache) with
+    the new key and value written at slot ``pos`` in place."""
+    pos = int(cache["pos"])
+    ck, cv = cache["k"], cache["v"]
+    if pos >= ck.shape[3]:
+        raise IndexError(f"the cache is full ({ck.shape[3]} slots); prefill "
+                         f"with a larger pad_to")
+    x = embed_tokens(cfg, params, tokens[:, None])
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    layers = _run_layers(cfg, params)
+    for i in range(cfg.n_layers):
+        def attn_fn(q, k, v, i=i):
+            ck[i, :, :, pos] = k[:, 0]
+            cv[i, :, :, pos] = v[:, 0]
+            return L.attention(q, ck[i].transpose(1, 2), cv[i].transpose(1, 2),
+                               causal=True, q_offset=pos, kv_len=pos + 1)
+        x = _layer_body(cfg, x, _layer(layers, i), positions, attn_fn)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
+    logits = unembed(cfg, params, x)[:, 0]
+    return logits, {"k": ck, "v": cv, "pos": pos + 1}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    return kv_cache_specs(cfg, batch, max_seq)

@@ -1,0 +1,111 @@
+"""Batched serving engine: shared prefill + synchronized decode (the
+reference's `src/repro/serve/engine.py`).
+
+One prefill for the batch, then one decode step per new token with a
+shared position counter. The carbon layer throttles the engine through
+`duty`, a decode-rate cap: after each step the engine sleeps so that
+decoding takes ``1 / duty`` of its unthrottled time (vertical scaling
+for inference).
+
+Timing ends in a device synchronisation, as the reference's ends in a
+host read of the tokens. Greedy decoding is ``argmax`` (the first
+maximum, as ``jnp.argmax``). Sampling draws with ``torch.multinomial``
+from the softmax of the logits with the caller's generator: the same
+distribution as ``jax.random.categorical``, not the same draws.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.api import Model
+from repro_torch.models.params import tree_map
+
+
+@dataclass
+class ServeEngine:
+    model: Model
+    params: Optional[dict] = None
+    device: Union[str, torch.device] = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.stats = {"prefill_tokens": 0, "decode_tokens": 0,
+                      "prefill_s": 0.0, "decode_s": 0.0}
+        self._prepared = (None, None)      # (params it came from, prepared)
+
+    def load(self, seed=0):
+        """Seeded parameters on the engine's device (`seed`: an int or a
+        torch.Generator)."""
+        self.params = self.model.init(seed, device=self.device)
+        return self
+
+    def prepared_params(self) -> dict:
+        """The parameters on the engine's device, cast once for serving."""
+        src, prepared = self._prepared
+        if src is not self.params:
+            moved = tree_map(lambda t: t.to(self.device), self.params)
+            self._prepared = (self.params, self.model.prepare(moved))
+        return self._prepared[1]
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def generate(self, prompts, max_new_tokens: int, greedy: bool = True,
+                 duty: float = 1.0,
+                 generator: Optional[torch.Generator] = None,
+                 eos_id: int = -1) -> dict:
+        """prompts: (B, S) int -> generated (B, max_new_tokens) int32."""
+        if self.params is None:
+            raise RuntimeError("call load() first or pass params")
+        params = self.prepared_params()
+        tokens = torch.as_tensor(prompts, dtype=torch.long,
+                                 device=self.device)
+        B, S = tokens.shape
+        self._sync()
+        t0 = time.perf_counter()
+        logits, cache = self.model.prefill(params, {"tokens": tokens},
+                                           pad_to=S + max_new_tokens)
+        self._sync()
+        self.stats["prefill_s"] += time.perf_counter() - t0
+        self.stats["prefill_tokens"] += B * S
+
+        if generator is None and not greedy:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        out = np.zeros((B, max_new_tokens), np.int32)
+        tok = torch.argmax(logits, -1)
+        done = np.zeros((B,), bool)
+        for i in range(max_new_tokens):
+            out[:, i] = tok.cpu().numpy()
+            if eos_id >= 0:
+                done |= out[:, i] == eos_id
+                if done.all():
+                    out = out[:, :i + 1]
+                    break
+            t0 = time.perf_counter()
+            logits, cache = self.model.decode(params, cache, tok)
+            if greedy:
+                tok = torch.argmax(logits, -1)
+            else:
+                probs = torch.softmax(logits.float(), -1)
+                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+            self._sync()
+            dt = time.perf_counter() - t0
+            self.stats["decode_s"] += dt
+            self.stats["decode_tokens"] += B
+            if duty < 1.0:            # vertical scaling: decode-rate cap
+                time.sleep(dt * (1.0 / max(duty, 1e-2) - 1.0))
+        return {"tokens": out, "stats": dict(self.stats)}
+
+
+def throughput_tokens_per_s(stats: dict) -> dict:
+    return {
+        "prefill_tok_s": stats["prefill_tokens"] / max(stats["prefill_s"], 1e-9),
+        "decode_tok_s": stats["decode_tokens"] / max(stats["decode_s"], 1e-9),
+    }

@@ -1,5 +1,6 @@
-"""Tests that need the card: the CUDA admission kernel against its plain
-version, and card-vs-CPU plan equality. They skip without a GPU. On the
+"""Tests that need the card: the CUDA admission and flash-attention
+kernels against their plain versions, card-vs-CPU plan equality and
+card-vs-CPU serving. They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
 import numpy as np
@@ -57,3 +58,62 @@ def test_plan_on_card_equals_cpu(cuda):
     assert np.array_equal(a.assign, b.assign)
     assert np.array_equal(a.migrations, b.migrations)
     assert np.allclose(a.overhead_g, b.overhead_g, rtol=1e-12, atol=0.0)
+
+
+# B, Sq, Skv, Hq, Hkv, Dh, causal, window: tests/test_kernels.py's
+# ATTN_CASES, the serving shapes (phi4-mini, smollm), the other head
+# sizes, a ragged tail and Sq < Skv
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 32, True, 0), (1, 64, 64, 2, 1, 16, True, 24),
+    (2, 128, 128, 4, 4, 64, False, 0), (1, 96, 96, 8, 2, 32, True, 0),
+    (4, 2048, 2048, 24, 8, 128, True, 0), (2, 512, 512, 9, 3, 64, True, 0),
+    (1, 200, 200, 2, 1, 256, True, 70), (2, 77, 77, 6, 2, 128, False, 0),
+    (1, 40, 130, 4, 2, 64, False, 0), (1, 40, 130, 4, 2, 64, False, 50),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_equals_plain_version(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch)
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
+    q = torch.randn(B, Sq, Hq, Dh, generator=gen, device=cuda).to(dt)
+    k = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dt)
+    v = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dt)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_torch(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+
+
+def test_serving_on_card_equals_cpu(cuda):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(get_arch("smollm-135m").smoke, dtype="float32")
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    tokens = {"tokens": torch.as_tensor(prompts)}
+    on_card = {k: v.to(cuda) for k, v in tokens.items()}
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    before = flash_attention.launches
+    a, ca = model.prefill(card_params, on_card, pad_to=44)
+    b, cb = model.prefill(params, tokens, pad_to=44)
+    assert flash_attention.launches == before + cfg.n_layers
+    torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    for _ in range(3):
+        tok = torch.argmax(b, -1)
+        a, ca = model.decode(card_params, ca, tok.to(cuda))
+        b, cb = model.decode(params, cb, tok)
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)

@@ -30,7 +30,9 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "src/repro_torch/core/fleet.py" in names
     assert "chip_smoke.py" in names
+    assert "src/repro_torch/serve/engine.py" in names
     assert (PORT / "csrc" / "admission_round.cu").exists()
+    assert (PORT / "csrc" / "flash_attention.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
