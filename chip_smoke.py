@@ -11,9 +11,13 @@ raising on failure so the run exits non-zero:
   2. build every kernel of the port from ``src/repro_torch/csrc``, one
      nvcc per source, all started together;
   3. kernel phase: each kernel against its plain PyTorch version on the
-     card, on the same random inputs, at the main paths' shapes (the
-     admission round exactly; flash attention within 2e-5 in float32 and
-     2e-2 in bfloat16); both timed with CUDA events at the main path's
+     card, on the same random inputs, at the main paths' shapes and
+     tests/test_kernels.py's cases: the admission round exactly; flash
+     attention within 2e-5 in float32 and 2e-2 in bfloat16, Dh 256 at
+     16:1 heads with a window that bites included; the SSD scan within
+     5e-3 / 1e-1 (y) and 5e-3 (h_final), with a case whose masked
+     triangle overflows; the RG-LRU scan within 1e-5 / 3e-2 (y) and
+     1e-4 / 1e-2 (h). Each is timed with CUDA events at its main path's
      shape, beside one PyTorch library call where one computes the same
      function, and the least time the card could take (`bound_ms`);
   4. sweep cross-check: the placed sweep at 5,000 traces x 10 targets x
@@ -24,24 +28,31 @@ raising on failure so the run exits non-zero:
      (N = 1,000,000 containers), 288 five-minute epochs, regions
      PL/NL/CAISO at capacity 60,000 each, CarbonContainerPolicy("energy"),
      through `SweepSpec(...).run()`;
-  6. serving cross-check: phi4-mini-3.8b's widths at 2 layers in float32,
-     the same weights on the card and on the CPU, batch 2 x 128-token
-     prompts, then 8 decode steps fed the same tokens: every step's
-     logits within 1e-3;
-  7. serving at full width: phi4-mini-3.8b (32 layers, d_model 3072,
-     200,064-token vocabulary), seeded random weights on the card,
-     `ServeEngine.generate` of 32 greedy tokens after 4 prompts of 2,048
-     random tokens, then a torch.profiler breakdown of one prefill and of
-     one decode step.
+  6. serving cross-checks at the published widths in float32, the same
+     weights on the card and on the CPU, batch 2, then 8 decode steps fed
+     the CPU's greedy tokens, every step's logits within 1e-3:
+     phi4-mini-3.8b at 2 layers (128-token prompts), mamba2-2.7b at 2
+     layers (256), recurrentgemma-9b at 4 layers, one superlayer and one
+     trailing recurrent block (256; its window cut to 128, so that it
+     bites in the prefill and the ring wraps in decode);
+  7. serving at full width, one engine at a time: phi4-mini-3.8b,
+     mamba2-2.7b and recurrentgemma-9b with seeded random weights on the
+     card, `ServeEngine.generate` of 32 greedy tokens after 4 prompts of
+     2,048 random tokens, then a torch.profiler breakdown of one prefill
+     and of one decode step.
 
-Phases 5 and 7 are the main paths: each kernel's launch counter is set to
-0 just before its path and read just after; the path must have launched
-its kernel (2*R*T admission launches; one flash launch per layer).
+Phases 5 and 7 are the main paths: every kernel's launch counter is set
+to 0 just before each path and read just after; each path must have
+launched exactly its kernels (2*R*T admission launches in the sweep;
+per prefill 32 flash launches for phi4-mini, 64 SSD launches for
+Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma) and no
+others.
 
 Prints the nvidia-smi line, one line of phase results, the ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``. The full record
 goes to ``chiprun_out/chip_smoke.json``.
 """
+import gc
 import json
 import subprocess
 import sys
@@ -56,10 +67,10 @@ OUT = ROOT / "chiprun_out"
 SEED = 2
 REGIONS = ("PL", "NL", "CAISO")
 N_TARGETS = 10
-SERVE_ARCH = "phi4-mini-3.8b"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW_TOKENS = 4, 2048, 32
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores, same
+FP32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TIMED_REPS = 50
 
 
@@ -128,7 +139,8 @@ def _admission_inputs(N, R, seed, dev):
 
 def _kernel_record(name, source, replaces, kernel, plain, library, *,
                    nbytes, flops, peak_flops, checked, max_abs_err,
-                   tolerance, kernel_head_start, plain_head_start):
+                   tolerance, kernel_head_start, plain_head_start,
+                   plain_reps=TIMED_REPS):
     """One kernel's record, the same keys for every kernel: its time and
     its plain version's (CUDA events, median; with a head start so the
     device work alone is timed, and as one call from the host), one
@@ -137,7 +149,8 @@ def _kernel_record(name, source, replaces, kernel, plain, library, *,
     written once) over HBM bandwidth and the operations over the peak
     rate for their type."""
     ms = _median_ms(kernel, head_start_cycles=kernel_head_start)
-    plain_ms = _median_ms(plain, head_start_cycles=plain_head_start)
+    plain_ms = _median_ms(plain, reps=plain_reps,
+                          head_start_cycles=plain_head_start)
     library_ms = (_median_ms(library, head_start_cycles=kernel_head_start)
                   if library is not None else None)
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -147,7 +160,8 @@ def _kernel_record(name, source, replaces, kernel, plain, library, *,
             "max_abs_err": max_abs_err, "tolerance": tolerance,
             "checked": checked, "ms": ms, "kernel_ms": ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "call_ms": _median_ms(kernel), "plain_call_ms": _median_ms(plain),
+            "call_ms": _median_ms(kernel),
+            "plain_call_ms": _median_ms(plain, reps=plain_reps),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "operations" if op_ms > byte_ms else "bytes",
             "bytes": nbytes, "flops": flops}
@@ -186,11 +200,13 @@ def admission_phase(dev):
 
 
 # B, S, Hq, Hkv, Dh, causal, window: tests/test_kernels.py's ATTN_CASES,
-# then SmolLM-135M's prefill shape; the main path's shape comes last
+# SmolLM-135M's prefill shape, a Dh-256 16:1 case where the window bites
+# (RecurrentGemma's heads); the main paths' shapes come last
 FLASH_CASES = [(2, 128, 4, 2, 32, True, 0), (1, 64, 2, 1, 16, True, 24),
                (2, 128, 4, 4, 64, False, 0), (1, 96, 8, 2, 32, True, 0),
-               (2, 512, 9, 3, 64, True, 0)]
+               (2, 512, 9, 3, 64, True, 0), (1, 1024, 16, 1, 256, True, 512)]
 FLASH_MAIN = (4, 2048, 24, 8, 128, True, 0)      # phi4-mini prefill, bf16
+FLASH_RG = (4, 2048, 16, 1, 256, True, 2048)     # RecurrentGemma prefill
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -208,7 +224,7 @@ def flash_phase(dev):
                                                      flash_attention_torch)
     checked = []
     runs = [(c, dt) for c in FLASH_CASES for dt in FLASH_TOL]
-    runs.append((FLASH_MAIN, torch.bfloat16))
+    runs += [(FLASH_MAIN, torch.bfloat16), (FLASH_RG, torch.bfloat16)]
     for i, (case, dtype) in enumerate(runs):
         causal, window = case[5], case[6]
         q, k, v = _qkv(case, dtype, dev, seed=i)
@@ -222,31 +238,181 @@ def flash_phase(dev):
                                  f"version at {case} {dtype}: max abs {err}")
         checked.append({"case": list(case), "dtype": str(dtype)[6:],
                         "max_abs_err": err, "tol": tol})
-    B, S, Hq, Hkv, Dh, causal, window = FLASH_MAIN
-    q, k, v = _qkv(FLASH_MAIN, torch.bfloat16, dev, seed=len(runs) - 1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                          enable_gqa=True).transpose(1, 2)
-    library_err = float((sdpa.float() - flash_attention_torch(
-        q, k, v).float()).abs().max())
-    pairs = S * (S + 1) // 2                   # causal (q, kv) pairs
+
+    def timed(case, seed):
+        B, S, Hq, Hkv, Dh, causal, window = case
+        q, k, v = _qkv(case, torch.bfloat16, dev, seed=seed)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        if 0 < window < S:
+            raise ValueError("the library yardstick is causal attention "
+                             "without a window that bites")
+        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True).transpose(1, 2)
+        library_err = float((sdpa.float() - flash_attention_torch(
+            q, k, v).float()).abs().max())
+        pairs = S * (S + 1) // 2                   # causal (q, kv) pairs
+        record = _kernel_record(
+            "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:78",
+            lambda: flash_attention(q, k, v, causal=causal, window=window),
+            lambda: flash_attention_torch(q, k, v, causal=causal,
+                                          window=window),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True),
+            nbytes=2 * (2 * B * S * Hq * Dh + 2 * B * S * Hkv * Dh),
+            flops=4 * B * Hq * Dh * pairs, peak_flops=BF16_FLOP_PER_S,
+            checked=checked,
+            max_abs_err=max(c["max_abs_err"] for c in checked),
+            tolerance="2e-5 float32, 2e-2 bfloat16 (abs and rel)",
+            kernel_head_start=2_000_000, plain_head_start=20_000_000)
+        record["shape"] = {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "Dh": Dh,
+                           "dtype": "bfloat16", "causal": causal,
+                           "window": window}
+        record["library"] = ("torch.nn.functional."
+                             "scaled_dot_product_attention(is_causal=True, "
+                             "enable_gqa=True)")
+        record["library_max_abs_err"] = library_err
+        return record
+
+    record = timed(FLASH_MAIN, seed=len(runs) - 2)
+    rg = timed(FLASH_RG, seed=len(runs) - 1)
+    record["recurrentgemma"] = {k: rg[k] for k in (
+        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+        "bytes", "flops", "library_max_abs_err")}
+    return record
+
+
+# B, S, H, P, N, chunk: tests/test_kernels.py's SSD_CASES, then Mamba-2's
+# smoke shape; the overflow case and the main path's shape are separate
+SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
+             (2, 96, 4, 64, 16, 32), (2, 48, 4, 32, 16, 16)]
+SSD_MAIN = (4, 2048, 80, 64, 128, 256)           # mamba2-2.7b prefill, bf16
+SSD_TOL = {torch.float32: 5e-3, torch.bfloat16: 1e-1}   # y; h_final 5e-3
+
+
+def _ssd_inputs(case, dtype, dev, seed, overflow=False):
+    """tests/test_kernels.py's distributions; `overflow`: a = -16 and
+    dt > 2, so exp(cum_q - cum_k) above the diagonal is inf."""
+    B, S, H, P, N, _ = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(f(B, S, H))
+    a_log = torch.rand(H, generator=gen, device=dev) * 1.5
+    if overflow:
+        dt, a_log = dt + 2.0, torch.full_like(a_log, float(np.log(16.0)))
+    return (f(B, S, H, P).to(dtype), dt, a_log, f(B, S, 1, N).to(dtype),
+            f(B, S, 1, N).to(dtype), torch.ones(H, device=dev))
+
+
+def ssd_phase(dev):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+    checked = []
+    runs = [(c, dt, False) for c in SSD_CASES for dt in SSD_TOL]
+    runs += [((2, 512, 4, 64, 128, 256), torch.float32, True),
+             (SSD_MAIN, torch.bfloat16, False)]
+    for i, (case, dtype, overflow) in enumerate(runs):
+        args = _ssd_inputs(case, dtype, dev, seed=i, overflow=overflow)
+        y, h = ssd_scan(*args, chunk=case[5])
+        y_want, h_want = ssd_scan_torch(*args, chunk=case[5])
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dtype]
+        finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
+        err = float((y.float() - y_want.float()).abs().max())
+        h_err = float((h - h_want).abs().max())
+        if not (finite and torch.allclose(y.float(), y_want.float(), atol=tol,
+                                          rtol=tol)
+                and torch.allclose(h, h_want, atol=5e-3, rtol=5e-3)):
+            raise AssertionError(f"ssd_scan differs from its plain version at "
+                                 f"{case} {dtype} (overflow {overflow}): "
+                                 f"finite {finite}, max abs y {err}, h "
+                                 f"{h_err}")
+        checked.append({"case": list(case), "dtype": str(dtype)[6:],
+                        "overflow": overflow, "max_abs_err": err,
+                        "h_max_abs_err": h_err, "tol": tol})
+    B, S, H, P, N, Q = SSD_MAIN
+    args = _ssd_inputs(SSD_MAIN, torch.bfloat16, dev, seed=len(runs) - 1)
+    nc = S // Q
+    # each input read once, each output written once: x, b, c, y in bf16;
+    # dt, a_log, d, h_final in f32
+    nbytes = (2 * (2 * B * S * H * P + 2 * B * S * N)
+              + 4 * (B * S * H + 2 * H + B * H * P * N))
+    # the chunked form's products: C.B^T per chunk (shared by the heads),
+    # then per head the full Q x Q product with x, the chunk state and
+    # the entering state's contribution
+    flops = B * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * P * N))
     record = _kernel_record(
-        "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:78",
-        lambda: flash_attention(q, k, v, causal=causal, window=window),
-        lambda: flash_attention_torch(q, k, v, causal=causal, window=window),
-        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                               enable_gqa=True),
-        nbytes=2 * (2 * B * S * Hq * Dh + 2 * B * S * Hkv * Dh),
-        flops=4 * B * Hq * Dh * pairs, peak_flops=BF16_FLOP_PER_S,
+        "ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:67",
+        lambda: ssd_scan(*args, chunk=Q),
+        lambda: ssd_scan_torch(*args, chunk=Q), None,
+        nbytes=nbytes, flops=flops, peak_flops=BF16_FLOP_PER_S,
         checked=checked, max_abs_err=max(c["max_abs_err"] for c in checked),
-        tolerance="2e-5 float32, 2e-2 bfloat16 (abs and rel)",
-        kernel_head_start=2_000_000, plain_head_start=20_000_000)
-    record["shape"] = {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "Dh": Dh,
-                       "dtype": "bfloat16", "causal": causal}
-    record["library"] = ("torch.nn.functional.scaled_dot_product_attention"
-                         "(is_causal=True, enable_gqa=True)")
-    record["library_max_abs_err"] = library_err
+        tolerance="y 5e-3 float32, 1e-1 bfloat16; h_final 5e-3 (abs and "
+                  "rel)", kernel_head_start=4_000_000,
+        plain_head_start=20_000_000)
+    record["shape"] = {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
+                       "dtype": "bfloat16"}
+    record["library"] = "none: no single PyTorch call computes the SSD scan"
+    return record
+
+
+# B, S, W: tests/test_kernels.py's RGLRU_CASES and a ragged width; the
+# main path's shape comes last
+RGLRU_CASES = [(2, 64, 128), (1, 128, 256), (3, 32, 512), (2, 37, 100)]
+RGLRU_MAIN = (4, 2048, 4096)                     # recurrentgemma-9b, a bf16
+RGLRU_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
+
+
+def _rglru_inputs(case, dtype, dev, seed):
+    """(a in `dtype`, gx, h0) from random gates, as `rglru_gated` feeds
+    the kernel."""
+    from repro_torch.kernels.ref import rglru_gates
+    B, S, W = case
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, r, i = (torch.randn(B, S, W, generator=gen, device=dev).to(dtype)
+               for _ in range(3))
+    lam = torch.randn(W, generator=gen, device=dev)
+    a, gx = rglru_gates(x, r, i, lam)
+    return a.to(dtype), gx, torch.randn(B, W, generator=gen, device=dev)
+
+
+def rglru_phase(dev):
+    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_torch
+    checked = []
+    runs = [(c, dt) for c in RGLRU_CASES for dt in RGLRU_TOL]
+    runs.append((RGLRU_MAIN, torch.bfloat16))
+    for i, (case, dtype) in enumerate(runs):
+        args = _rglru_inputs(case, dtype, dev, seed=i)
+        y, h = rglru_scan(*args)
+        y_want, h_want = rglru_scan_torch(*args)
+        torch.cuda.synchronize()
+        tol, htol = RGLRU_TOL[dtype]
+        err = float((y - y_want).abs().max())
+        h_err = float((h - h_want).abs().max())
+        if not (torch.allclose(y, y_want, atol=tol, rtol=tol)
+                and torch.allclose(h, h_want, atol=htol, rtol=htol)):
+            raise AssertionError(f"rglru_scan differs from its plain version "
+                                 f"at {case} {dtype}: max abs y {err}, h "
+                                 f"{h_err}")
+        checked.append({"case": list(case), "dtype": str(dtype)[6:],
+                        "max_abs_err": err, "h_max_abs_err": h_err,
+                        "tol": tol, "htol": htol})
+    B, S, W = RGLRU_MAIN
+    args = _rglru_inputs(RGLRU_MAIN, torch.bfloat16, dev, seed=len(runs) - 1)
+    # a in bf16, gx and h_seq in f32, h0 and h_last in f32; 2 ops a step
+    nbytes = B * S * W * (2 + 4 + 4) + 2 * 4 * B * W
+    record = _kernel_record(
+        "rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
+        "src/repro/kernels/rglru_scan.py:48",
+        lambda: rglru_scan(*args), lambda: rglru_scan_torch(*args), None,
+        nbytes=nbytes, flops=2 * B * S * W, peak_flops=FP32_FLOP_PER_S,
+        checked=checked, max_abs_err=max(c["max_abs_err"] for c in checked),
+        tolerance="y 1e-5 float32, 3e-2 bfloat16; h 1e-4 float32, 1e-2 "
+                  "bfloat16 (abs and rel)", kernel_head_start=4_000_000,
+        plain_head_start=400_000_000, plain_reps=5)
+    record["shape"] = {"B": B, "S": S, "W": W, "a_dtype": "bfloat16"}
+    record["library"] = ("none: no single PyTorch call computes a linear "
+                         "recurrence")
     return record
 
 
@@ -309,7 +475,6 @@ def cross_check(dev):
 
 def full_width(dev):
     from repro_torch.cluster.placement import plan_torch
-    from repro_torch.cluster.placement_kernel import admission_round
     from repro_torch.workload.azure_like import sample_population_matrix
     n_traces = 100_000
     t0 = time.perf_counter()
@@ -331,16 +496,17 @@ def full_width(dev):
     spec = _spec(demand, eng, dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-    admission_round.launches = 0
+    _zero_counts()
     t0 = time.perf_counter()
     res = spec.run()
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
-    launches = admission_round.launches
-    if launches != 2 * R * T:
-        raise AssertionError(f"admission_round launched {launches} times "
-                             f"on the main path, expected 2*R*T = "
-                             f"{2 * R * T}")
+    launches = _read_counts()
+    want = {name: 0 for name in launches}
+    want["admission_round"] = 2 * R * T
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} on the sweep's "
+                             f"main path, expected {want}")
     _check_rows(res, N_TARGETS)
     if res.rows[0]["placement_migrations_mean"] != float(
             np.mean(plan.migrations)):
@@ -359,42 +525,76 @@ def full_width(dev):
             "capacity": cap, "gen_s": gen_s, "plan_s": plan_s,
             "sweep_s": sweep_s, "container_epochs_per_s": N * T / sweep_s,
             "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
-            "over_capacity_epochs": over, "admission_launches": launches,
+            "over_capacity_epochs": over, "launches": launches,
             "plan_migrations": int(plan.migrations.sum()),
             "rows": res.rows, "profile": profile}
 
 
-def _serving_model(n_layers=0, dtype=None):
+def _kernel_counters():
+    """{name: the wrapper whose `launches` counts that kernel's launches}."""
+    from repro_torch.cluster.placement_kernel import admission_round
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"admission_round": admission_round,
+            "flash_attention": flash_attention, "ssd_scan": ssd_scan,
+            "rglru_scan": rglru_scan}
+
+
+def _zero_counts():
+    for fn in _kernel_counters().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _kernel_counters().items()}
+
+
+def _serving_model(arch, dtype=None, **overrides):
     import dataclasses
 
     from repro_torch.configs import get_arch
     from repro_torch.models.api import get_model
-    cfg = get_arch(SERVE_ARCH).full
-    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
-                              dtype=dtype or cfg.dtype)
+    cfg = get_arch(arch).full
+    cfg = dataclasses.replace(cfg, dtype=dtype or cfg.dtype, **overrides)
     return get_model(cfg)
 
 
-def serving_cross_check(dev):
-    """phi4-mini's widths at 2 layers in float32: the same weights and
-    tokens on the card and on the CPU, prefill then 8 decode steps fed
-    the CPU's greedy tokens."""
+# arch, depth and overrides of the card-vs-CPU checks (float32, the
+# published widths): phi4-mini and Mamba-2 at 2 layers; RecurrentGemma
+# at one superlayer plus one trailing recurrent block, so both scan
+# groups run, with its window cut to 128 so that it bites in the
+# prefill's flash launch and the ring wraps in decode
+SERVE_CROSS = [("phi4-mini-3.8b", 128, {"n_layers": 2}),
+               ("mamba2-2.7b", 256, {"n_layers": 2}),
+               ("recurrentgemma-9b", 256, {"n_layers": 4,
+                                           "local_window": 128})]
+
+
+def serving_cross_check(dev, arch, prompt_len, overrides):
+    """The same weights and tokens on the card and on the CPU in
+    float32: prefill, then 8 decode steps fed the CPU's greedy tokens;
+    every step's logits within 1e-3."""
     from repro_torch.models.params import tree_map
-    model = _serving_model(n_layers=2, dtype="float32")
+    model = _serving_model(arch, dtype="float32", **overrides)
     cpu_params = model.init(SEED, device="cpu")
     params = tree_map(lambda t: t.to(dev), cpu_params)
     prompts = np.random.default_rng(SEED).integers(
-        0, model.cfg.vocab_size, (2, 128))
+        0, model.cfg.vocab_size, (2, prompt_len))
     tokens = torch.as_tensor(prompts)
-    a, ca = model.prefill(params, {"tokens": tokens.to(dev)}, pad_to=136)
-    b, cb = model.prefill(cpu_params, {"tokens": tokens}, pad_to=136)
+    _zero_counts()
+    a, ca = model.prefill(params, {"tokens": tokens.to(dev)},
+                          pad_to=prompt_len + 8)
+    launches = {k: v for k, v in _read_counts().items() if v}
+    b, cb = model.prefill(cpu_params, {"tokens": tokens},
+                          pad_to=prompt_len + 8)
     errs, agree, steps = [], 0, 0
     for step in range(9):
         a = a.cpu()
         err = float((a - b).abs().max())
         if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
-            raise AssertionError(f"card vs CPU logits differ at step {step}: "
-                                 f"max abs {err}")
+            raise AssertionError(f"{arch}: card vs CPU logits differ at step "
+                                 f"{step}: max abs {err}")
         errs.append(err)
         tok = torch.argmax(b, -1)
         agree += int((torch.argmax(a, -1) == tok).sum())
@@ -402,16 +602,26 @@ def serving_cross_check(dev):
         if step < 8:
             a, ca = model.decode(params, ca, tok.to(dev))
             b, cb = model.decode(cpu_params, cb, tok)
-    return {"arch": SERVE_ARCH, "n_layers": 2, "dtype": "float32",
-            "batch": 2, "prompt_len": 128, "decode_steps": 8,
-            "max_abs_err": max(errs), "errs": errs,
-            "greedy_agree": agree, "greedy_total": steps}
+    return {"arch": arch, **overrides, "dtype": "float32", "batch": 2,
+            "prompt_len": prompt_len, "decode_steps": 8,
+            "prefill_launches": launches, "max_abs_err": max(errs),
+            "errs": errs, "greedy_agree": agree, "greedy_total": steps}
 
 
-def serving_full_width(dev):
-    from repro_torch.kernels.flash_attention import flash_attention
+# arch, the kernel launches of one prefill (one generate) at full width
+SERVE_FULL = [("phi4-mini-3.8b", {"flash_attention": 32}),
+              ("mamba2-2.7b", {"ssd_scan": 64}),
+              ("recurrentgemma-9b", {"rglru_scan": 26,
+                                     "flash_attention": 12})]
+
+
+def serving_full_width(dev, arch, expected, warmup_len):
+    """`ServeEngine.generate` of 32 greedy tokens after 4 prompts of
+    2,048 random tokens at the published widths and depth, seeded random
+    weights; then a torch.profiler breakdown of one prefill and one
+    decode step."""
     from repro_torch.serve.engine import ServeEngine, throughput_tokens_per_s
-    model = _serving_model()
+    model = _serving_model(arch)
     cfg = model.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -421,23 +631,25 @@ def serving_full_width(dev):
     load_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
-    engine.generate(prompts[:, :128], 2)          # warm-up (cuBLAS, caches)
+    engine.generate(prompts[:, :warmup_len], 2)    # warm-up (cuBLAS, caches)
     engine.stats = dict.fromkeys(engine.stats, 0)
 
-    flash_attention.launches = 0
+    _zero_counts()
     out = engine.generate(prompts, SERVE_NEW_TOKENS, duty=1.0)
     torch.cuda.synchronize()
-    launches = flash_attention.launches
-    if launches != cfg.n_layers:
-        raise AssertionError(f"flash_attention launched {launches} times on "
-                             f"the serving path, expected one per layer = "
-                             f"{cfg.n_layers}")
+    launches = _read_counts()
+    want = {name: expected.get(name, 0) for name in launches}
+    if launches != want:
+        raise AssertionError(f"{arch}: kernel launches {launches} on the "
+                             f"serving path, expected {want} (one prefill)")
     toks = out["tokens"]
     if toks.shape != (SERVE_BATCH, SERVE_NEW_TOKENS) or toks.min() < 0 or (
             toks.max() >= cfg.vocab_size):
-        raise AssertionError(f"generated tokens of shape {toks.shape} in "
-                             f"[{toks.min()}, {toks.max()}]")
+        raise AssertionError(f"{arch}: generated tokens of shape "
+                             f"{toks.shape} in [{toks.min()}, {toks.max()}]")
     peak = torch.cuda.max_memory_allocated(dev)
+    if peak >= torch.cuda.get_device_properties(dev).total_memory:
+        raise AssertionError(f"{arch}: peak memory {peak} B")
     tp = throughput_tokens_per_s(out["stats"])
 
     # where the time goes: one prefill and one decode step, profiled
@@ -449,18 +661,24 @@ def serving_full_width(dev):
     logits = res["logits"]
     if tuple(logits.shape) != (SERVE_BATCH, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
-        raise AssertionError("prefill logits are not finite of shape (B, V)")
+        raise AssertionError(f"{arch}: prefill logits are not finite of "
+                             f"shape (B, V)")
     dec = _device_profile(lambda: model.decode(
         params, res["cache"], torch.argmax(logits, -1)))
     profile = {name: dict(zip(("wall_s", "device_s", "top"), prof))
                for name, prof in (("prefill", pre), ("decode_step", dec))}
-    return {"arch": SERVE_ARCH, "params": model.param_count(),
+    return {"arch": arch, "params": model.param_count(),
             "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
             "new_tokens": SERVE_NEW_TOKENS, "load_s": load_s,
             "prefill_s": out["stats"]["prefill_s"],
             "decode_s": out["stats"]["decode_s"], **tp,
-            "max_memory_allocated": peak, "flash_launches": launches,
+            "max_memory_allocated": peak, "launches": launches,
             "tokens_head": toks[:, :8].tolist(), "profile": profile}
+
+
+def _free_device_memory():
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main():
@@ -479,43 +697,65 @@ def main():
     torch.cuda.set_device(dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
-    libs = cuda_build.build(["admission_round", "flash_attention"])
+    libs = cuda_build.build(list(_kernel_counters()))
     build_s = time.perf_counter() - t0
     for name, path in libs.items():
         log = path.with_suffix(".log")
         if log.exists():
             print(f"[{name}] {log.read_text().strip()}", flush=True)
 
-    kernels = [admission_phase(dev), flash_phase(dev)]
+    kernels = {r["name"]: r for r in (admission_phase(dev), flash_phase(dev),
+                                      ssd_phase(dev), rglru_phase(dev))}
     cross = cross_check(dev)
     full = full_width(dev)
-    kernels[0]["launches"] = full["admission_launches"]
-    torch.cuda.empty_cache()
-    serve_cross = serving_cross_check(dev)
-    serve = serving_full_width(dev)
-    kernels[1]["launches"] = serve["flash_launches"]
+    _free_device_memory()
+    serve_cross = [serving_cross_check(dev, arch, n, ov)
+                   for arch, n, ov in SERVE_CROSS]
+    _free_device_memory()
+    serve = []
+    for arch, expected in SERVE_FULL:
+        warmup = 128 if arch == "phi4-mini-3.8b" else 256
+        serve.append(serving_full_width(dev, arch, expected, warmup))
+        _free_device_memory()
+
+    # launches: the count of each kernel over the main paths that run it
+    by_path = {"placed_sweep": full["launches"],
+               **{r["arch"]: r["launches"] for r in serve}}
+    for name, record in kernels.items():
+        record["launches_by_path"] = {path: counts[name] for path, counts in
+                                      by_path.items() if counts[name]}
+        record["launches"] = sum(record["launches_by_path"].values())
+        if not record["launches"]:
+            raise AssertionError(f"{name} was not launched on a main path")
+    kernels = list(kernels.values())
+    total_s = time.perf_counter() - t_start
 
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "kernels": kernels, "cross_check": cross, "full_width": full,
-              "serving_cross_check": serve_cross, "serving": serve}
+              "total_s": total_s, "kernels": kernels, "cross_check": cross,
+              "full_width": full, "serving_cross_check": serve_cross,
+              "serving": serve}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     summary = {k: v for k, v in full.items() if k not in ("rows", "profile")}
     summary["sweep_device_s"] = full["profile"]["sweep"]["device_s"]
     summary["plan_device_s"] = full["profile"]["plan"]["device_s"]
-    serve_summary = {k: v for k, v in serve.items() if k != "profile"}
-    for name, prof in serve["profile"].items():
-        serve_summary[name] = {"wall_s": prof["wall_s"],
-                               "device_s": prof["device_s"],
-                               "top": prof["top"][:6]}
-    print(json.dumps({"build_s": build_s, "cross_check": cross,
-                      "full_width": summary,
-                      "serving_cross_check": {k: v for k, v in
-                                              serve_cross.items()
-                                              if k != "errs"},
+    serve_summary = []
+    for r in serve:
+        row = {k: v for k, v in r.items() if k != "profile"}
+        for name, prof in r["profile"].items():
+            row[name] = {"wall_s": prof["wall_s"],
+                         "device_s": prof["device_s"],
+                         "top": prof["top"][:6]}
+        serve_summary.append(row)
+    print(json.dumps({"build_s": build_s, "total_s": total_s,
+                      "cross_check": cross, "full_width": summary,
+                      "serving_cross_check": [
+                          {k: v for k, v in r.items() if k != "errs"}
+                          for r in serve_cross],
                       "serving": serve_summary}), flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k != "checked"} for r in kernels]}),

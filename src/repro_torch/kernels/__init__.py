@@ -1,2 +1,2 @@
-"""Model kernels: the CUDA flash-attention kernel with its plain version,
-the plain attention oracle and the attention dispatch."""
+"""Model kernels: the CUDA flash-attention, SSD-scan and RG-LRU kernels
+with their plain versions, the plain oracles and the dispatch (`ops`)."""

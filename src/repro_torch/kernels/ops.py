@@ -1,30 +1,115 @@
-"""Attention dispatch of the model path (the reference's `kernels/ops.mha`).
+"""Kernel dispatch of the model path (the reference's `kernels/ops.py`).
 
-``impl`` (the model config's ``attn_impl``):
-  - "auto": the plain `attention_ref` for decode (one query row, or ring
-            positions) and on the CPU; the CUDA flash kernel for a prefill
-            on the card (``q_offset == 0``, no ``kv_len``), as the
-            reference takes its Pallas kernel on a TPU exactly there;
-  - "ref":  always the plain version.
+The port dispatches as the reference does on a TPU, with the card in
+the TPU's place. ``impl``:
+  - "auto": the CUDA kernel where the reference takes its Pallas kernel
+            on a TPU, for a CUDA tensor; the reference's CPU path
+            otherwise and on the CPU;
+  - "ref":  always the plain path.
+
+  - `mha`: the flash kernel for a prefill (``q_offset == 0``, no
+    ``kv_len`` or ``kv_positions``); `attention_ref` for decode.
+  - `ssd`: the SSD kernel when G == 1 and ``h0 is None``; `ssd_chunked`
+    otherwise.
+  - `rglru`: the RG-LRU kernel path (`rglru_gated`); `rglru_assoc`
+    on the CPU.
+  - The decode steps and the causal conv are plain torch, as they are
+    plain jnp in the reference.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.rglru_scan import rglru_gated
+from repro_torch.kernels.ssd_scan import ssd_scan
 
+IMPLS = ("auto", "ref")
+
+
+def _on_card(impl: str, x: torch.Tensor, op: str) -> bool:
+    """Whether "auto" sends a tensor on the card to the kernel."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown {op} impl {impl!r}; expected auto or ref")
+    return impl == "auto" and x.device.type == "cuda"
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: int = 0, q_offset=0, kv_len=None,
         kv_positions=None, impl: str = "auto") -> torch.Tensor:
     """GQA attention. q (B,Sq,Hq,Dh); k,v (B,Skv,Hkv,Dh)."""
-    if impl not in ("auto", "ref"):
-        raise ValueError(f"unknown attention impl {impl!r}; expected auto "
-                         f"or ref")
-    if (impl == "auto" and q.device.type == "cuda" and q.shape[1] > 1
-            and q_offset == 0 and kv_len is None and kv_positions is None):
+    if (_on_card(impl, q, "attention") and q.shape[1] > 1 and q_offset == 0
+            and kv_len is None and kv_positions is None):
         return flash_attention(q, k, v, causal=causal, window=window or 0)
-    return attention_ref(q, k, v, causal=causal, window=window,
-                         q_offset=q_offset, kv_len=kv_len,
-                         kv_positions=kv_positions)
+    return R.attention_ref(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, kv_len=kv_len,
+                           kv_positions=kv_positions)
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 SSD
+# ---------------------------------------------------------------------------
+
+def ssd(x, dt, a_log, b, c, d, *, h0=None, chunk: int = 256,
+        impl: str = "auto"):
+    """SSD scan. Returns (y, h_final); see `ref.ssd_ref` for semantics."""
+    if _on_card(impl, x, "ssd") and b.shape[2] == 1 and h0 is None:
+        return ssd_scan(x, dt, a_log, b, c, d, chunk=chunk)
+    return R.ssd_chunked(x, dt, a_log, b, c, d, h0=h0, chunk=chunk)
+
+
+def ssd_decode_step(x, dt, a_log, b, c, d, h):
+    """Single-token SSD update. x (B,H,P), dt (B,H), b, c (B,G,N),
+    h (B,H,P,N). Returns (y (B,H,P) in x.dtype, h float32)."""
+    rep = x.shape[1] // b.shape[1]
+    a = -torch.exp(a_log.float())
+    bt = b.repeat_interleave(rep, dim=1).float()
+    ct = c.repeat_interleave(rep, dim=1).float()
+    dtf = dt.float()
+    da = torch.exp(dtf * a[None, :])
+    h = h.float() * da[..., None, None] + torch.einsum(
+        "bhp,bhn,bh->bhpn", x.float(), bt, dtf)
+    y = torch.einsum("bhpn,bhn->bhp", h, ct)
+    y = y + x.float() * d.float()[None, :, None]
+    return y.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+def rglru(x, r, i, lam, *, h0=None, impl: str = "auto"):
+    """Gated linear recurrence. Returns (h_seq, h_final)."""
+    if _on_card(impl, x, "rglru"):
+        return rglru_gated(x, r, i, lam, h0=h0)
+    return R.rglru_assoc(x, r, i, lam, h0=h0)
+
+
+def rglru_decode_step(x, r, i, lam, h):
+    """Single-token RG-LRU update. x, r, i (B,W); h (B,W). Returns
+    (h in x.dtype, h float32)."""
+    a, gx = R.rglru_gates(x, r, i, lam)
+    h = a * h.float() + gx
+    return h.to(x.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, b=None, state=None):
+    return R.causal_conv1d_ref(x, w, b, state)
+
+
+def conv1d_decode_step(x, w, b, state):
+    """x (B,C) one step; state (B,K-1,C). Returns (y (B,C), new state)."""
+    xs = torch.cat([state.to(x.dtype), x[:, None, :]], dim=1)    # (B,K,C)
+    y = torch.einsum("bkc,kc->bc", xs.float(), w.float())
+    if b is not None:
+        y = y + b.float()
+    return y.to(x.dtype), xs[:, 1:]

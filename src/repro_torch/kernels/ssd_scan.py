@@ -1,0 +1,110 @@
+"""Mamba-2 SSD chunked scan: the CUDA kernel and its plain PyTorch version.
+
+`ssd_scan` replaces the Pallas TPU kernel `ssd_pallas`
+(`src/repro/kernels/ssd_scan.py:67`), with its contract: one group of B
+and C (G = 1) and a zero initial state. On a CUDA tensor it runs the
+hand-written sm_90a kernel in ``csrc/ssd_scan.cu`` (three launches: chunk
+states, the carry over chunks, the outputs; see the source for the
+design and its bound) or raises. On a CPU tensor it runs
+`ssd_scan_torch`, the plain version, which is also what the kernel is
+held against on the card.
+
+`ssd_scan.launches` counts calls that launched the kernel; CPU calls do
+not count.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch import cuda_build
+from repro_torch.kernels.ref import ssd_chunked
+
+HEAD_DIMS = (16, 32, 64)                # templates in the CUDA source
+MAX_CHUNK = 256                         # the kernel's block scan
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def ssd_scan_torch(x, dt, a_log, b, c, d, *, chunk: int = 128):
+    """Plain PyTorch version of `ssd_scan`: the chunked form that the
+    Pallas kernel mirrors, from a zero state."""
+    return ssd_chunked(x, dt, a_log, b, c, d, chunk=chunk)
+
+
+def _check(x, dt, a_log, b, c, d, Q):
+    if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape:
+        raise ValueError("ssd_scan takes x (B,S,H,P) and b, c (B,S,1,N)")
+    B, S, H, P = x.shape
+    if b.shape[:2] != (B, S) or b.shape[2] != 1:
+        raise ValueError(f"b and c must be (B,S,1,N) with one group, got "
+                         f"{tuple(b.shape)} for x {tuple(x.shape)}")
+    if tuple(dt.shape) != (B, S, H) or a_log.shape != (H,) or d.shape != (H,):
+        raise ValueError(f"dt must be (B,S,H) and a_log, d (H,); got "
+                         f"{tuple(dt.shape)}, {tuple(a_log.shape)}, "
+                         f"{tuple(d.shape)}")
+    if S % Q:
+        raise ValueError(f"seq {S} not divisible by chunk {Q}")
+    if x.dtype not in DTYPE_CODES or b.dtype != x.dtype or c.dtype != x.dtype:
+        raise ValueError(f"ssd_scan takes x, b, c in one of float32 or "
+                         f"bfloat16; got {x.dtype}, {b.dtype}, {c.dtype}")
+    if any(t.device != x.device for t in (dt, a_log, b, c, d)):
+        raise ValueError("all inputs must be on one device")
+
+
+@functools.cache
+def _library():
+    """The built kernel library with its C signatures declared."""
+    lib = cuda_build.load("ssd_scan")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.ssd_scan_fwd.argtypes = [p] * 10 + [i] * 7 + [p]
+    lib.ssd_scan_fwd.restype = i
+    return lib
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
+             b: torch.Tensor, c: torch.Tensor, d: torch.Tensor, *,
+             chunk: int = 128) -> tuple:
+    """x (B,S,H,P); dt (B,S,H); a_log, d (H,); b, c (B,S,1,N).
+
+    Returns (y (B,S,H,P) in x.dtype, h_final (B,H,P,N) float32): the SSD
+    scan from a zero state with chunks of min(chunk, S) steps. On the
+    card: P in {16, 32, 64}, chunk <= 256, and N small enough that the
+    output launch's tiles fit a block's shared memory (N = 128: 101 KB).
+    """
+    Q = min(chunk, x.shape[1])
+    _check(x, dt, a_log, b, c, d, Q)
+    if x.device.type == "cpu":
+        return ssd_scan_torch(x, dt, a_log, b, c, d, chunk=chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd_scan runs on cuda or cpu tensors, got "
+                         f"{x.device}")
+    B, S, H, P = x.shape
+    N = b.shape[3]
+    if P not in HEAD_DIMS or Q > MAX_CHUNK:
+        raise ValueError(f"the CUDA kernel takes P in {HEAD_DIMS} and chunks "
+                         f"of at most {MAX_CHUNK}; got P={P}, chunk={Q}")
+    lib = _library()
+    x, b, c = x.contiguous(), b.contiguous(), c.contiguous()
+    dt = dt.float().contiguous()
+    a_log, d = a_log.float().contiguous(), d.float().contiguous()
+    nc = S // Q
+    y = torch.empty_like(x)
+    h_final = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
+    states = torch.empty(B, nc, H, P, N, dtype=torch.float32, device=x.device)
+    cum_end = torch.empty(B, nc, H, dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+            c.data_ptr(), d.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+            states.data_ptr(), cum_end.data_ptr(), DTYPE_CODES[x.dtype], B, S,
+            H, P, N, Q, stream)
+    if err:
+        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+    ssd_scan.launches += 1
+    return y, h_final
+
+
+ssd_scan.launches = 0

@@ -3,8 +3,10 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --smoke false --batch 4 --prompt-len 2048 --new-tokens 32 [--device cuda]
 
-``--smoke true`` (the default) serves the architecture's reduced config;
-``--device`` defaults to ``cuda`` and fails without a card.
+``--arch``: a dense, Mamba-2 or RecurrentGemma architecture
+(`repro_torch.configs`). ``--smoke true`` (the default) serves its
+reduced config; ``--device`` defaults to ``cuda`` and fails without a
+card. Prints the kernel launches of the run (none on the CPU).
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import numpy as np
 from repro_torch.config import parse_cli
 from repro_torch.configs import get_arch
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.api import get_model
 from repro_torch.serve.engine import ServeEngine, throughput_tokens_per_s
 
@@ -29,13 +33,15 @@ def main(argv=None) -> int:
     S = int(args.get("prompt-len", 32))
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
-    launches = flash_attention.launches
+    kernels = (flash_attention, ssd_scan, rglru_scan)
+    before = [k.launches for k in kernels]
     out = engine.generate(prompts, int(args.get("new-tokens", 16)),
                           duty=float(args.get("duty", 1.0)))
     tp = throughput_tokens_per_s(out["stats"])
+    flash, ssd, rglru = (k.launches - n for k, n in zip(kernels, before))
     print(f"{cfg.name} on {engine.device}: generated {out['tokens'].shape} "
-          f"tokens, {flash_attention.launches - launches} flash kernel "
-          f"launches")
+          f"tokens, {flash} flash kernel launches, {ssd} ssd_scan, {rglru} "
+          f"rglru_scan")
     print(f"prefill {tp['prefill_tok_s']:.0f} tok/s, decode "
           f"{tp['decode_tok_s']:.0f} tok/s")
     return 0

@@ -1,5 +1,5 @@
-"""Model substrate of the port: the dense transformer (more families in
-later slices), as plain functions on parameter dicts."""
+"""Model substrate of the port: the dense transformer, Mamba-2 and
+RecurrentGemma, as plain functions on parameter dicts."""
 from repro_torch.models.api import Model, get_model
 
 __all__ = ["get_model", "Model"]

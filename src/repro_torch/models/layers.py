@@ -96,9 +96,11 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Tanh-approximated GELU (``jax.nn.gelu``'s default), in its op
-    sequence, so bf16 rounds where it rounds."""
+    sequence and with its constants rounded to x's dtype, so bf16 rounds
+    where it rounds."""
     c = float(torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype))
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+    k = float(torch.tensor(0.044715, dtype=x.dtype))
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
 def mlp(x: torch.Tensor, p: dict, variant: str, dtype) -> torch.Tensor:

@@ -2,13 +2,13 @@
 
 Each module declares its parameters as a nested dict of ``ParamSpec``
 leaves, as in the reference. `init_params` draws the reference's
-distributions for the dense family (zeros, ones, normal·scale,
-normal/√fan_in; the SSM and RG-LRU initialisers come with their
-families) with one ``torch.Generator`` per leaf, seeded from
-the caller's seed and the same crc32 salt of the leaf's path
-("layers/attn/wq"). It cannot reproduce JAX's random stream and does not
-try: parity tests carry the reference's arrays across
-(`repro_torch.convert.from_reference_params`).
+distributions (zeros, ones, normal·scale, normal/√fan_in, Mamba-2's
+``ssm_a`` = log U[1, 16) and RG-LRU's ``lru_lambda`` =
+log(expm1(−log U[0.9, 0.999) / 8))) with one ``torch.Generator`` per
+leaf, seeded from the caller's seed and the same crc32 salt of the
+leaf's path ("layers/attn/wq"). It cannot reproduce JAX's random
+stream and does not try: parity tests carry the reference's arrays
+across (`repro_torch.convert.from_reference_params`).
 """
 from __future__ import annotations
 
@@ -68,11 +68,20 @@ def _init_leaf(spec: ParamSpec, gen: torch.Generator, dev) -> torch.Tensor:
         return torch.zeros(spec.shape, dtype=dtype, device=dev)
     if spec.init == "ones":
         return torch.ones(spec.shape, dtype=dtype, device=dev)
+    if spec.init == "ssm_a":  # Mamba-2 A_log: log uniform [1, 16)
+        u = torch.rand(spec.shape, **f32) * 15.0 + 1.0
+        return torch.log(u).to(dtype)
+    if spec.init == "lru_lambda":  # RG-LRU: a^c ~ uniform [0.9, 0.999)
+        u = torch.rand(spec.shape, **f32) * (0.999 - 0.9) + 0.9
+        sp = -torch.log(u) / 8.0           # softplus(lambda), with c = 8
+        return torch.log(torch.expm1(sp)).to(dtype)
+    # scaled in place: no transient second copy of a leaf (Mamba-2's
+    # stacked in_proj is 6.9 GB in float32)
     if spec.init == "scaled":  # normal / sqrt(fan_in); fan_in = shape[-2]
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-        return (torch.randn(spec.shape, **f32) / math.sqrt(fan_in)).to(dtype)
+        return torch.randn(spec.shape, **f32).div_(math.sqrt(fan_in)).to(dtype)
     if spec.init == "normal":
-        return (torch.randn(spec.shape, **f32) * spec.scale).to(dtype)
+        return torch.randn(spec.shape, **f32).mul_(spec.scale).to(dtype)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

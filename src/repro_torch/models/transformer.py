@@ -60,17 +60,19 @@ def specs(cfg: ModelConfig) -> dict:
     return out
 
 
-def prepare(cfg: ModelConfig, params: dict) -> dict:
+def prepare(cfg: ModelConfig, params: dict, stacks=("layers",)) -> dict:
     """The parameters as prefill and decode use them, cast once: the
-    embeddings and (with ``cast_weights``) the layers in the activation
-    dtype, ``final_norm`` as it is."""
+    embeddings and (with ``cast_weights``) the stacked layer groups
+    `stacks` in the activation dtype, ``final_norm`` as it is."""
     dtype = DTYPES[cfg.dtype]
     out = dict(params)
     out["embed"] = params["embed"].to(dtype)
     if "unembed" in params:
         out["unembed"] = params["unembed"].to(dtype)
     if cfg.cast_weights:
-        out["layers"] = L.cast_tree(params["layers"], dtype)
+        for key in stacks:
+            if key in params:
+                out[key] = L.cast_tree(params[key], dtype)
     return out
 
 
@@ -99,13 +101,16 @@ def _layer_body(cfg: ModelConfig, x, lp, positions, attn_fn):
     return x + L.mlp(h, lp["mlp"], cfg.mlp_variant, DTYPES[cfg.dtype])
 
 
-def _run_layers(cfg: ModelConfig, params: dict) -> dict:
+def run_layers(cfg: ModelConfig, params: dict, key: str = "layers") -> dict:
+    """The stacked layer group `key` as the layers run it: cast to the
+    activation dtype with ``cast_weights`` (free once `prepare`d)."""
     if cfg.cast_weights:
-        return L.cast_tree(params["layers"], DTYPES[cfg.dtype])
-    return params["layers"]
+        return L.cast_tree(params[key], DTYPES[cfg.dtype])
+    return params[key]
 
 
-def _layer(layers: dict, i: int) -> dict:
+def layer(layers: dict, i: int) -> dict:
+    """Layer `i` of a stacked layer group."""
     return tree_map(lambda t: t[i], layers)
 
 
@@ -128,13 +133,13 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
     kv_shape = (cfg.n_layers, B, cfg.n_kv_heads, cap, cfg.head_dim)
     ck = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
     cv = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
-    layers = _run_layers(cfg, params)
+    layers = run_layers(cfg, params)
     for i in range(cfg.n_layers):
         def attn_fn(q, k, v, i=i):
             ck[i, :, :, :S] = k.transpose(1, 2)      # cache layout (B,Hkv,S,Dh)
             cv[i, :, :, :S] = v.transpose(1, 2)
             return L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
-        x = _layer_body(cfg, x, _layer(layers, i), positions, attn_fn)
+        x = _layer_body(cfg, x, layer(layers, i), positions, attn_fn)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x[:, -1:, :])[:, 0]
     return logits, {"k": ck, "v": cv, "pos": S}
@@ -151,14 +156,14 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                          f"with a larger pad_to")
     x = embed_tokens(cfg, params, tokens[:, None])
     positions = torch.arange(pos, pos + 1, device=x.device)
-    layers = _run_layers(cfg, params)
+    layers = run_layers(cfg, params)
     for i in range(cfg.n_layers):
         def attn_fn(q, k, v, i=i):
             ck[i, :, :, pos] = k[:, 0]
             cv[i, :, :, pos] = v[:, 0]
             return L.attention(q, ck[i].transpose(1, 2), cv[i].transpose(1, 2),
                                causal=True, q_offset=pos, kv_len=pos + 1)
-        x = _layer_body(cfg, x, _layer(layers, i), positions, attn_fn)
+        x = _layer_body(cfg, x, layer(layers, i), positions, attn_fn)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x)[:, 0]
     return logits, {"k": ck, "v": cv, "pos": pos + 1}

@@ -1,6 +1,6 @@
-"""Tests that need the card: the CUDA admission and flash-attention
-kernels against their plain versions, card-vs-CPU plan equality and
-card-vs-CPU serving. They skip without a GPU. On the
+"""Tests that need the card: the CUDA admission, flash-attention, SSD and
+RG-LRU kernels against their plain versions, card-vs-CPU plan equality
+and card-vs-CPU serving (SmolLM, Mamba-2, RecurrentGemma). They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
 import numpy as np
@@ -69,6 +69,9 @@ FLASH_CASES = [
     (4, 2048, 2048, 24, 8, 128, True, 0), (2, 512, 512, 9, 3, 64, True, 0),
     (1, 200, 200, 2, 1, 256, True, 70), (2, 77, 77, 6, 2, 128, False, 0),
     (1, 40, 130, 4, 2, 64, False, 0), (1, 40, 130, 4, 2, 64, False, 50),
+    # RecurrentGemma: Dh 256, 16:1 heads, a window that bites
+    (1, 1024, 1024, 16, 1, 256, True, 512),
+    (1, 2048, 2048, 16, 1, 256, True, 2048),
 ]
 
 
@@ -117,3 +120,124 @@ def test_serving_on_card_equals_cpu(cuda):
         a, ca = model.decode(card_params, ca, tok.to(cuda))
         b, cb = model.decode(params, cb, tok)
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+# B, S, H, P, N, chunk: tests/test_kernels.py's SSD_CASES, Mamba-2's smoke
+# shape, and the serving shape at batch 1
+SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
+             (2, 96, 4, 64, 16, 32), (2, 48, 4, 32, 16, 16),
+             (1, 512, 80, 64, 128, 256)]
+
+
+def _ssd_inputs(case, dtype, dev, seed, overflow=False):
+    """tests/test_kernels.py's distributions; `overflow`: |a|·dt large
+    enough that exp(cum_q - cum_k) above the diagonal is inf."""
+    B, S, H, P, N, _ = case
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: torch.as_tensor(rng.normal(size=shape),
+                                       dtype=torch.float32, device=dev)
+    dt = torch.nn.functional.softplus(f(B, S, H))
+    a_log = torch.as_tensor(rng.uniform(0.0, 1.5, H), dtype=torch.float32,
+                            device=dev)
+    if overflow:
+        dt, a_log = dt + 2.0, torch.full_like(a_log, float(np.log(16.0)))
+    return (f(B, S, H, P).to(dtype), dt, a_log, f(B, S, 1, N).to(dtype),
+            f(B, S, 1, N).to(dtype), torch.ones(H, device=dev))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_CASES, ids=str)
+def test_ssd_kernel_equals_plain_version(cuda, case, dtype):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+    dt = getattr(torch, dtype)
+    args = _ssd_inputs(case, dt, cuda, seed=sum(case))
+    before = ssd_scan.launches
+    y, h = ssd_scan(*args, chunk=case[5])
+    y_want, h_want = ssd_scan_torch(*args, chunk=case[5])
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dt and h.dtype == torch.float32
+    tol = 5e-3 if dtype == "float32" else 1e-1
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
+
+
+def test_ssd_kernel_does_not_overflow_above_the_diagonal(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+    case = (2, 512, 4, 64, 128, 256)
+    args = _ssd_inputs(case, torch.float32, cuda, seed=3, overflow=True)
+    y, h = ssd_scan(*args, chunk=256)
+    y_want, h_want = ssd_scan_torch(*args, chunk=256)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(h).all())
+    torch.testing.assert_close(y, y_want, atol=5e-3, rtol=5e-3)
+    torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
+
+
+# B, S, W: tests/test_kernels.py's RGLRU_CASES, a ragged tail, the
+# serving shape at batch 1
+RGLRU_CASES = [(2, 64, 128), (1, 128, 256), (3, 32, 512), (2, 37, 100),
+               (1, 2048, 4096)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
+def test_rglru_kernel_equals_plain_version(cuda, case, dtype):
+    from repro_torch.kernels.rglru_scan import (rglru_gated, rglru_scan,
+                                                rglru_scan_torch)
+    from repro_torch.kernels.ref import rglru_gates
+    B, S, W = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(case))
+    x, r, i = (torch.as_tensor(rng.normal(size=(B, S, W)), dtype=torch.float32,
+                               device=cuda).to(dt) for _ in range(3))
+    lam = torch.as_tensor(rng.normal(size=W), dtype=torch.float32, device=cuda)
+    h0 = torch.as_tensor(rng.normal(size=(B, W)), dtype=torch.float32,
+                         device=cuda)
+    a, gx = rglru_gates(x, r, i, lam)
+    before = rglru_scan.launches
+    y, h = rglru_scan(a.to(dt), gx, h0)
+    y_want, h_want = rglru_scan_torch(a.to(dt), gx, h0)
+    yg, hg = rglru_gated(x, r, i, lam, h0=h0)
+    torch.cuda.synchronize()
+    assert rglru_scan.launches == before + 2
+    assert y.dtype == torch.float32 and yg.dtype == dt
+    tol, htol = (1e-5, 1e-4) if dtype == "float32" else (3e-2, 1e-2)
+    torch.testing.assert_close(y, y_want, atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_want, atol=htol, rtol=htol)
+    torch.testing.assert_close(yg.float(), y_want.to(dt).float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(hg, h_want, atol=htol, rtol=htol)
+
+
+@pytest.mark.parametrize("arch,n_layers,kernel,per_prefill", [
+    ("mamba2-2.7b", 2, "ssd", 2), ("recurrentgemma-9b", 4, "rglru", 3)])
+def test_recurrent_serving_on_card_equals_cpu(cuda, arch, n_layers, kernel,
+                                             per_prefill):
+    """Full widths at reduced depth in float32; RecurrentGemma with one
+    superlayer and one trailing block, a window of 128 that bites in the
+    prefill and wraps in decode."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import tree_map
+    cfg = dataclasses.replace(get_arch(arch).full, n_layers=n_layers,
+                              dtype="float32", local_window=128)
+    model = get_model(cfg)
+    params = model.init(0, device="cpu")
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 256)))
+    counter = {"ssd": ssd_scan, "rglru": rglru_scan}[kernel]
+    before = counter.launches
+    a, ca = model.prefill(card_params, {"tokens": prompts.to(cuda)})
+    b, cb = model.prefill(params, {"tokens": prompts})
+    assert counter.launches == before + per_prefill
+    torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)
+    for _ in range(8):
+        tok = torch.argmax(b, -1)
+        a, ca = model.decode(card_params, ca, tok.to(cuda))
+        b, cb = model.decode(params, cb, tok)
+        torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)

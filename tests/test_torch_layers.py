@@ -120,6 +120,16 @@ def test_bf16_activations_round_as_the_reference(fn):
     np.testing.assert_allclose(got, want, rtol=8e-3, atol=4e-3)
 
 
+def test_bf16_gelu_equals_the_reference_bit_for_bit():
+    """GELU's cubic coefficient is a bf16 constant in the reference
+    (0.044677734375); used unrounded, one element in ~400 differed by an
+    ulp, enough to move RecurrentGemma's bf16 logits past 2e-2."""
+    x = _rng(7).normal(size=(100_000,)).astype(np.float32) * 3
+    got = TL.gelu(torch.tensor(x).bfloat16()).float().numpy()
+    want = np.asarray(jax.nn.gelu(jnp.asarray(x, jnp.bfloat16)), np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_cast_tree_keeps_tensors_already_in_the_dtype():
     t32, t16 = torch.ones(3), torch.ones(3, dtype=torch.bfloat16)
     out = TL.cast_tree({"a": t32, "b": {"c": t16}}, torch.bfloat16)

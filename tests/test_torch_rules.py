@@ -33,6 +33,8 @@ def test_port_files_exist():
     assert "src/repro_torch/serve/engine.py" in names
     assert (PORT / "csrc" / "admission_round.cu").exists()
     assert (PORT / "csrc" / "flash_attention.cu").exists()
+    assert (PORT / "csrc" / "ssd_scan.cu").exists()
+    assert (PORT / "csrc" / "rglru_scan.cu").exists()
 
 
 @pytest.mark.parametrize("path", _port_files(),
