@@ -9,17 +9,28 @@ raising on failure so the run exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
      TF32 off for float32 matmuls (the card-vs-CPU checks depend on it);
   2. build every kernel of the port from ``src/repro_torch/csrc``, one
-     nvcc per source, all started together;
+     nvcc per source, all started together; count the tensor-core
+     instructions (HGMMA, HMMA) of each kernel function with
+     ``cuobjdump -sass`` and fail if the wgmma flash kernel or the
+     mma.sync SSD kernels have none;
   3. kernel phase: each kernel against its plain PyTorch version on the
      card, on the same random inputs, at the main paths' shapes and
      tests/test_kernels.py's cases: the admission round exactly; flash
      attention within 2e-5 in float32 and 2e-2 in bfloat16, Dh 256 at
-     16:1 heads with a window that bites included; the SSD scan within
-     5e-3 / 1e-1 (y) and 5e-3 (h_final), with a case whose masked
-     triangle overflows; the RG-LRU scan within 1e-5 / 3e-2 (y) and
-     1e-4 / 1e-2 (h). Each is timed with CUDA events at its main path's
-     shape, beside one PyTorch library call where one computes the same
-     function, and the least time the card could take (`bound_ms`);
+     16:1 heads with a window that bites included, and bf16 cases across
+     the wgmma route's tile edges; the SSD scan within 5e-3 / 1e-1 (y)
+     and 5e-3 (h_final), with a case whose masked triangle overflows,
+     tile-edge cases and x, b, c as the mixer's strided views; the
+     RG-LRU scan within 1e-5 / 3e-2 (y) and 1e-4 / 1e-2 (h). Each case
+     records its route and its margin (the share of the allclose bar its
+     worst element uses). Each kernel is timed with CUDA events at its
+     main path's shape, beside one PyTorch library call where one
+     computes the same function, and the least time the card could take
+     (`bound_ms`);
+  3b. bf16 through real layers: phi4-mini and mamba2 at their published
+     widths, 2 layers, prefill logits with the kernels against the plain
+     versions (``attn_impl``/``ssm_impl`` "ref"), within 2e-2 of the max
+     |logit|;
   4. sweep cross-check: the placed sweep at 5,000 traces x 10 targets x
      288 epochs on the card and on the CPU: rows within 1e-9, plans equal;
   5. sweep at full width: the placed sweep of
@@ -46,7 +57,8 @@ to 0 just before each path and read just after; each path must have
 launched exactly its kernels (2*R*T admission launches in the sweep;
 per prefill 32 flash launches for phi4-mini, 64 SSD launches for
 Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma) and no
-others.
+others, every flash launch on the wgmma route and every SSD launch on
+the mma_sync route.
 
 Prints the nvidia-smi line, one line of phase results, the ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``. The full record
@@ -117,6 +129,13 @@ def _device_profile(fn):
     top = [{"name": k[2][:120], "device_s": k[0] / 1e6, "count": k[1]}
            for k in kernels[:12]]
     return wall, dev_s, top
+
+
+def _margin(got, want, tol):
+    """max |got - want| / (tol + tol |want|): the share of the allclose bar
+    (atol = rtol = tol) that the worst element uses; below 1 passes."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
 
 
 def _admission_inputs(N, R, seed, dev):
@@ -205,28 +224,45 @@ def admission_phase(dev):
 FLASH_CASES = [(2, 128, 4, 2, 32, True, 0), (1, 64, 2, 1, 16, True, 24),
                (2, 128, 4, 4, 64, False, 0), (1, 96, 8, 2, 32, True, 0),
                (2, 512, 9, 3, 64, True, 0), (1, 1024, 16, 1, 256, True, 512)]
+# B, Sq, Skv, Hq, Hkv, Dh, causal, window, bf16 only: cases that cross the
+# wgmma kernel's 64-key tiles and 128-row blocks (Sq, Skv not multiples of
+# 64, Sq != Skv, a window ending inside a tile, G = 3 and 16, Dh 64 / 128 /
+# 256)
+FLASH_EDGE = [(2, 200, 200, 6, 2, 64, True, 0),
+              (1, 1000, 1000, 16, 1, 128, True, 0),
+              (1, 1024, 1024, 4, 4, 256, True, 300),
+              (1, 200, 1000, 6, 2, 128, False, 0),
+              (1, 1000, 200, 3, 1, 64, True, 0),
+              (2, 1000, 1000, 8, 8, 256, False, 300)]
 FLASH_MAIN = (4, 2048, 24, 8, 128, True, 0)      # phi4-mini prefill, bf16
 FLASH_RG = (4, 2048, 16, 1, 256, True, 2048)     # RecurrentGemma prefill
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
 def _qkv(case, dtype, dev, seed):
-    B, S, Hq, Hkv, Dh = case[:5]
+    """q, k, v of a case (B, S, Hq, Hkv, Dh, ...) or, with 8 entries,
+    (B, Sq, Skv, Hq, Hkv, Dh, ...)."""
+    if len(case) == 8:
+        B, Sq, Skv, Hq, Hkv, Dh = case[:6]
+    else:
+        (B, Sq, Hq, Hkv, Dh), Skv = case[:5], case[1]
     gen = torch.Generator(device=dev).manual_seed(seed)
     return tuple(torch.randn(B, S, h, Dh, generator=gen, device=dev).to(dtype)
-                 for h in (Hq, Hkv, Hkv))
+                 for S, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
 
 
 def flash_phase(dev):
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_torch)
+                                                     flash_attention_torch,
+                                                     route)
     checked = []
     runs = [(c, dt) for c in FLASH_CASES for dt in FLASH_TOL]
+    runs += [(c, torch.bfloat16) for c in FLASH_EDGE]
     runs += [(FLASH_MAIN, torch.bfloat16), (FLASH_RG, torch.bfloat16)]
     for i, (case, dtype) in enumerate(runs):
-        causal, window = case[5], case[6]
+        causal, window = case[-2], case[-1]
         q, k, v = _qkv(case, dtype, dev, seed=i)
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_torch(q, k, v, causal=causal, window=window)
@@ -237,7 +273,9 @@ def flash_phase(dev):
             raise AssertionError(f"flash_attention differs from its plain "
                                  f"version at {case} {dtype}: max abs {err}")
         checked.append({"case": list(case), "dtype": str(dtype)[6:],
-                        "max_abs_err": err, "tol": tol})
+                        "route": route(dtype, q.shape[3]),
+                        "max_abs_err": err, "tol": tol,
+                        "margin": _margin(got, want, tol)})
 
     def timed(case, seed):
         B, S, Hq, Hkv, Dh, causal, window = case
@@ -272,27 +310,35 @@ def flash_phase(dev):
                              "scaled_dot_product_attention(is_causal=True, "
                              "enable_gqa=True)")
         record["library_max_abs_err"] = library_err
+        record["kernel_route"] = route(torch.bfloat16, Dh)
+        record["max_margin"] = max(c["margin"] for c in checked)
         return record
 
     record = timed(FLASH_MAIN, seed=len(runs) - 2)
     rg = timed(FLASH_RG, seed=len(runs) - 1)
     record["recurrentgemma"] = {k: rg[k] for k in (
-        "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-        "bytes", "flops", "library_max_abs_err")}
+        "shape", "kernel_route", "ms", "plain_ms", "library_ms", "bound_ms",
+        "bound_by", "bytes", "flops", "library_max_abs_err")}
     return record
 
 
 # B, S, H, P, N, chunk: tests/test_kernels.py's SSD_CASES, then Mamba-2's
-# smoke shape; the overflow case and the main path's shape are separate
+# smoke shape, then the tile edges of the bf16 route (chunks of 64 and 256
+# with N 128, P 16, H not a multiple of its head group); the overflow
+# case, the strided case and the main path's shape are separate
 SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
-             (2, 96, 4, 64, 16, 32), (2, 48, 4, 32, 16, 16)]
+             (2, 96, 4, 64, 16, 32), (2, 48, 4, 32, 16, 16),
+             (2, 512, 8, 64, 128, 64), (1, 1024, 12, 64, 128, 256),
+             (2, 256, 8, 16, 64, 64), (1, 256, 5, 32, 128, 128)]
 SSD_MAIN = (4, 2048, 80, 64, 128, 256)           # mamba2-2.7b prefill, bf16
 SSD_TOL = {torch.float32: 5e-3, torch.bfloat16: 1e-1}   # y; h_final 5e-3
 
 
-def _ssd_inputs(case, dtype, dev, seed, overflow=False):
+def _ssd_inputs(case, dtype, dev, seed, overflow=False, strided=False):
     """tests/test_kernels.py's distributions; `overflow`: a = -16 and
-    dt > 2, so exp(cum_q - cum_k) above the diagonal is inf."""
+    dt > 2, so exp(cum_q - cum_k) above the diagonal is inf; `strided`:
+    x, b and c are slices of one (B, S, H P + 2 N) tensor, as the Mamba-2
+    mixer passes its conv output."""
     B, S, H, P, N, _ = case
     gen = torch.Generator(device=dev).manual_seed(seed)
     f = lambda *shape: torch.randn(*shape, generator=gen, device=dev)
@@ -300,20 +346,29 @@ def _ssd_inputs(case, dtype, dev, seed, overflow=False):
     a_log = torch.rand(H, generator=gen, device=dev) * 1.5
     if overflow:
         dt, a_log = dt + 2.0, torch.full_like(a_log, float(np.log(16.0)))
+    if strided:
+        xs, b, c = torch.split(f(B, S, H * P + 2 * N).to(dtype),
+                               [H * P, N, N], dim=-1)
+        return (xs.reshape(B, S, H, P), dt, a_log, b.reshape(B, S, 1, N),
+                c.reshape(B, S, 1, N), torch.ones(H, device=dev))
     return (f(B, S, H, P).to(dtype), dt, a_log, f(B, S, 1, N).to(dtype),
             f(B, S, 1, N).to(dtype), torch.ones(H, device=dev))
 
 
 def ssd_phase(dev):
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+    from repro_torch.kernels.ssd_scan import ROUTES, ssd_scan, ssd_scan_torch
     checked = []
-    runs = [(c, dt, False) for c in SSD_CASES for dt in SSD_TOL]
-    runs += [((2, 512, 4, 64, 128, 256), torch.float32, True),
-             (SSD_MAIN, torch.bfloat16, False)]
-    for i, (case, dtype, overflow) in enumerate(runs):
-        args = _ssd_inputs(case, dtype, dev, seed=i, overflow=overflow)
+    runs = [(c, dt, False, False) for c in SSD_CASES for dt in SSD_TOL]
+    runs += [((2, 512, 4, 64, 128, 256), torch.float32, True, False),
+             ((2, 512, 8, 64, 128, 256), torch.bfloat16, False, True),
+             ((2, 512, 8, 64, 128, 256), torch.float32, False, True),
+             (SSD_MAIN, torch.bfloat16, False, False)]
+    for i, (case, dtype, overflow, strided) in enumerate(runs):
+        args = _ssd_inputs(case, dtype, dev, seed=i, overflow=overflow,
+                           strided=strided)
         y, h = ssd_scan(*args, chunk=case[5])
-        y_want, h_want = ssd_scan_torch(*args, chunk=case[5])
+        y_want, h_want = ssd_scan_torch(
+            *(t.contiguous() for t in args), chunk=case[5])
         torch.cuda.synchronize()
         tol = SSD_TOL[dtype]
         finite = bool(torch.isfinite(y).all() and torch.isfinite(h).all())
@@ -327,8 +382,11 @@ def ssd_phase(dev):
                                  f"finite {finite}, max abs y {err}, h "
                                  f"{h_err}")
         checked.append({"case": list(case), "dtype": str(dtype)[6:],
-                        "overflow": overflow, "max_abs_err": err,
-                        "h_max_abs_err": h_err, "tol": tol})
+                        "route": ROUTES[dtype], "overflow": overflow,
+                        "strided": strided, "max_abs_err": err,
+                        "h_max_abs_err": h_err, "tol": tol,
+                        "margin": _margin(y, y_want, tol),
+                        "h_margin": _margin(h, h_want, 5e-3)})
     B, S, H, P, N, Q = SSD_MAIN
     args = _ssd_inputs(SSD_MAIN, torch.bfloat16, dev, seed=len(runs) - 1)
     nc = S // Q
@@ -352,6 +410,9 @@ def ssd_phase(dev):
         plain_head_start=20_000_000)
     record["shape"] = {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
                        "dtype": "bfloat16"}
+    record["kernel_route"] = ROUTES[torch.bfloat16]
+    record["max_margin"] = max(max(c["margin"], c["h_margin"])
+                               for c in checked)
     record["library"] = "none: no single PyTorch call computes the SSD scan"
     return record
 
@@ -544,10 +605,54 @@ def _kernel_counters():
 def _zero_counts():
     for fn in _kernel_counters().values():
         fn.launches = 0
+        for path in getattr(fn, "route_launches", {}):
+            fn.route_launches[path] = 0
 
 
 def _read_counts() -> dict:
     return {name: fn.launches for name, fn in _kernel_counters().items()}
+
+
+def _read_routes() -> dict:
+    """{kernel: {route: launches}} for the kernels with several routes."""
+    return {name: dict(fn.route_launches)
+            for name, fn in _kernel_counters().items()
+            if hasattr(fn, "route_launches")}
+
+
+def sass_counts(libs) -> dict:
+    """Tensor-core instructions in each built kernel function, from
+    `cuobjdump -sass`: {library: {function: {"HGMMA": n, "HMMA": n}}}."""
+    import os
+    import re
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / (
+        "cuobjdump")
+    out = {}
+    for name, path in libs.items():
+        sass = subprocess.run([str(tool), "-sass", str(path)], check=True,
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        funcs, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                funcs[fn] = {"HGMMA": 0, "HMMA": 0}
+            elif fn is not None:
+                if "HGMMA." in line:
+                    funcs[fn]["HGMMA"] += 1
+                elif "HMMA." in line:
+                    funcs[fn]["HMMA"] += 1
+        out[name] = funcs
+    want = {("flash_attention", "flash_fwd_wgmma", "HGMMA"),
+            ("ssd_scan", "ssd_states_mma", "HMMA"),
+            ("ssd_scan", "ssd_out_mma", "HMMA")}
+    for lib, kernel, op in want:
+        found = [f for f in out[lib] if kernel in f]
+        if not found or not all(out[lib][f][op] for f in found):
+            raise AssertionError(f"{lib}: no {op} instructions in {kernel} "
+                                 f"({ {f: out[lib][f] for f in found} })")
+    return out
 
 
 def _serving_model(arch, dtype=None, **overrides):
@@ -608,11 +713,56 @@ def serving_cross_check(dev, arch, prompt_len, overrides):
             "errs": errs, "greedy_agree": agree, "greedy_total": steps}
 
 
-# arch, the kernel launches of one prefill (one generate) at full width
+# arch, the config switch that sends its kernel's layer to the plain
+# version: the bf16 kernels-vs-plain prefill check at the published widths
+BF16_CHECK = [("phi4-mini-3.8b", "attn_impl", "flash_attention"),
+              ("mamba2-2.7b", "ssm_impl", "ssd_scan")]
+BF16_LAYERS, BF16_BATCH = 2, 2
+
+
+def kernels_vs_plain_bf16(dev, arch, switch, kernel):
+    """Prefill logits of the same bf16 weights and prompts with the
+    kernels (impl "auto") and with the plain versions (impl "ref") at the
+    published widths, 2 layers, 2 x 2,048 tokens; within 2e-2 of the
+    largest |logit|. Holds the kernels' roundings through real layers."""
+    fast = _serving_model(arch, n_layers=BF16_LAYERS)
+    plain = _serving_model(arch, n_layers=BF16_LAYERS, **{switch: "ref"})
+    params = fast.prepare(fast.init(SEED, device=dev))
+    prompts = np.random.default_rng(SEED).integers(
+        0, fast.cfg.vocab_size, (BF16_BATCH, SERVE_PROMPT))
+    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    _zero_counts()
+    got, _ = fast.prefill(params, batch)
+    torch.cuda.synchronize()
+    launches, routes = _read_counts(), _read_routes()
+    want, _ = plain.prefill(params, batch)
+    if launches[kernel] != BF16_LAYERS or routes[kernel][
+            TC_ROUTES[kernel]] != BF16_LAYERS:
+        raise AssertionError(f"{arch}: {kernel} launches {launches[kernel]}"
+                             f", routes {routes[kernel]}; expected "
+                             f"{BF16_LAYERS} on {TC_ROUTES[kernel]}")
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not (bool(torch.isfinite(got).all()) and err <= 2e-2 * scale):
+        raise AssertionError(f"{arch}: bf16 prefill logits with the kernels "
+                             f"differ from the plain versions by {err} "
+                             f"(max |logit| {scale})")
+    return {"arch": arch, "n_layers": BF16_LAYERS, "dtype": "bfloat16",
+            "batch": BF16_BATCH, "prompt_len": SERVE_PROMPT,
+            "plain_switch": f"{switch}=ref", "launches": launches[kernel],
+            "routes": routes[kernel], "max_abs_err": err,
+            "max_abs_logit": scale, "err_over_max_logit": err / scale,
+            "tol": "2e-2 * max|logit|"}
+
+
+# arch, the kernel launches of one prefill (one generate) at full width;
+# every flash and SSD launch there takes the tensor-core route
 SERVE_FULL = [("phi4-mini-3.8b", {"flash_attention": 32}),
               ("mamba2-2.7b", {"ssd_scan": 64}),
               ("recurrentgemma-9b", {"rglru_scan": 26,
                                      "flash_attention": 12})]
+TC_ROUTES = {"flash_attention": "wgmma", "ssd_scan": "mma_sync"}
 
 
 def serving_full_width(dev, arch, expected, warmup_len):
@@ -638,10 +788,15 @@ def serving_full_width(dev, arch, expected, warmup_len):
     out = engine.generate(prompts, SERVE_NEW_TOKENS, duty=1.0)
     torch.cuda.synchronize()
     launches = _read_counts()
+    routes = _read_routes()
     want = {name: expected.get(name, 0) for name in launches}
     if launches != want:
         raise AssertionError(f"{arch}: kernel launches {launches} on the "
                              f"serving path, expected {want} (one prefill)")
+    for name, path in TC_ROUTES.items():
+        if routes[name].get(path, 0) != want[name]:
+            raise AssertionError(f"{arch}: {name} routes {routes[name]}, "
+                                 f"expected all {want[name]} on {path}")
     toks = out["tokens"]
     if toks.shape != (SERVE_BATCH, SERVE_NEW_TOKENS) or toks.min() < 0 or (
             toks.max() >= cfg.vocab_size):
@@ -673,7 +828,8 @@ def serving_full_width(dev, arch, expected, warmup_len):
             "prefill_s": out["stats"]["prefill_s"],
             "decode_s": out["stats"]["decode_s"], **tp,
             "max_memory_allocated": peak, "launches": launches,
-            "tokens_head": toks[:, :8].tolist(), "profile": profile}
+            "route_launches": routes, "tokens_head": toks[:, :8].tolist(),
+            "profile": profile}
 
 
 def _free_device_memory():
@@ -707,8 +863,19 @@ def main():
         if log.exists():
             print(f"[{name}] {log.read_text().strip()}", flush=True)
 
+    sass = sass_counts(libs)
+    for lib, funcs in sass.items():
+        tc = {f: n for f, n in funcs.items() if n["HGMMA"] or n["HMMA"]}
+        print(f"[{lib}] tensor-core instructions (cuobjdump -sass): "
+              f"{json.dumps(tc)}", flush=True)
+
     kernels = {r["name"]: r for r in (admission_phase(dev), flash_phase(dev),
                                       ssd_phase(dev), rglru_phase(dev))}
+    kernels["flash_attention"]["sass"] = sass["flash_attention"]
+    kernels["ssd_scan"]["sass"] = sass["ssd_scan"]
+    bf16_check = [kernels_vs_plain_bf16(dev, arch, switch, kernel)
+                  for arch, switch, kernel in BF16_CHECK]
+    _free_device_memory()
     cross = cross_check(dev)
     full = full_width(dev)
     _free_device_memory()
@@ -737,7 +904,7 @@ def main():
               "cuda": torch.version.cuda, "build_s": build_s,
               "total_s": total_s, "kernels": kernels, "cross_check": cross,
               "full_width": full, "serving_cross_check": serve_cross,
-              "serving": serve}
+              "bf16_kernels_vs_plain": bf16_check, "serving": serve}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     summary = {k: v for k, v in full.items() if k not in ("rows", "profile")}
@@ -756,10 +923,11 @@ def main():
                       "serving_cross_check": [
                           {k: v for k, v in r.items() if k != "errs"}
                           for r in serve_cross],
+                      "bf16_kernels_vs_plain": bf16_check,
                       "serving": serve_summary}), flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
-                                   if k != "checked"} for r in kernels]}),
-          flush=True)
+                                   if k not in ("checked", "sass")}
+                                  for r in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

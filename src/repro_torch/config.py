@@ -76,6 +76,7 @@ class ModelConfig:
     # --- lowering knobs (kept for field parity with the reference) ---
     scan_unroll: bool = False
     attn_impl: str = "auto"            # auto | ref
+    ssm_impl: str = "auto"             # auto | ref: the SSD scan of a prefill
     seq_shard: bool = True
     cast_weights: bool = True          # run the layers on weights cast to dtype
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``build/lib<name>-<hash>.so`` at
-the repository root, where the hash is that of the source, so an edited
-source is rebuilt and an unchanged one is not. The compiler's output
+the repository root, where the hash is that of the source together with
+every shared header ``csrc/*.cuh``, so an edited source or header is
+rebuilt and an unchanged one is not. The compiler's output
 (``-Xptxas -v``: registers, shared memory, spills) is kept beside the
 library as ``.log``. Nothing is built when a module is imported: the
 first kernel launch builds its library, or `build` builds several at
@@ -38,10 +39,13 @@ def _nvcc() -> str:
     return str(path)
 
 
-def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD / f"lib{name}-{digest}.so"
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """The library of ``<csrc>/<name>.cu``, named by a hash of that source
+    and of every ``<csrc>/*.cuh`` header (names and contents)."""
+    h = hashlib.sha256((csrc / f"{name}.cu").read_bytes())
+    for header in sorted(csrc.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names) -> dict:

@@ -3,14 +3,18 @@ version.
 
 `flash_attention` replaces the Pallas TPU kernel of the same name
 (`src/repro/kernels/flash_attention.py:78`). On a CUDA tensor it
-launches the hand-written sm_90a kernel in ``csrc/flash_attention.cu``
-(one launch; see the source for the design and its bound) or raises. On
-a CPU tensor it runs `flash_attention_torch`, the plain version, which is
-`attention_ref`; the plain version is also what the kernel is held
-against on the card.
+launches one of the hand-written sm_90a kernels in
+``csrc/flash_attention.cu`` (one launch; see the source for the designs
+and their bound) or raises. `ROUTES` names the kernel for each (dtype,
+Dh): ``"wgmma"`` (bf16 on the tensor cores, TMA-fed) or ``"cuda_core"``
+(f32 arithmetic, which keeps float32 exact); a pair the table does not
+list raises. On a CPU tensor it runs `flash_attention_torch`, the plain
+version, which is `attention_ref`; the plain version is also what the
+kernel is held against on the card.
 
-`flash_attention.launches` counts kernel launches; CPU calls do not
-count.
+`flash_attention.launches` counts kernel launches and
+`flash_attention.route_launches` the launches per route; CPU calls do
+not count.
 """
 from __future__ import annotations
 
@@ -23,8 +27,24 @@ import torch
 from repro_torch import cuda_build
 from repro_torch.kernels.ref import attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128, 256)      # templates in the CUDA source
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# (dtype, Dh) -> the kernel that serves it on the card
+ROUTES = {
+    **{(torch.float32, dh): "cuda_core" for dh in (16, 32, 64, 128, 256)},
+    **{(torch.bfloat16, dh): "cuda_core" for dh in (16, 32)},
+    **{(torch.bfloat16, dh): "wgmma" for dh in (64, 128, 256)},
+}
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that serves (dtype, Dh) on the card; raises if none."""
+    try:
+        return ROUTES[(dtype, head_dim)]
+    except KeyError:
+        raise ValueError(f"no CUDA flash kernel for {dtype} at Dh = "
+                         f"{head_dim}; the table serves "
+                         f"{sorted((str(d)[6:], h) for d, h in ROUTES)}"
+                         ) from None
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
@@ -64,6 +84,9 @@ def _library():
     lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
                                         i, ctypes.c_float, p]
     lib.flash_attention_fwd.restype = i
+    lib.flash_attention_fwd_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i,
+                                              i, i, ctypes.c_float, p]
+    lib.flash_attention_fwd_wgmma.restype = i
     return lib
 
 
@@ -74,7 +97,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     Causal and sliding-window (``window > 0``: keys within the last
     `window` positions) masks; scale defaults to Dh**-0.5. float32 or
-    bfloat16, contiguous, Dh in {16, 32, 64, 128, 256} on the card.
+    bfloat16, contiguous; on the card a (dtype, Dh) pair of `ROUTES`.
     """
     _check(q, k, v)
     if q.device.type == "cpu":
@@ -85,21 +108,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{q.device}")
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes Dh in {HEAD_DIMS}, got {Dh}")
+    path = route(q.dtype, Dh)
+    if path == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the wgmma kernel's TMA loads need q, k and v "
+                         "16-byte aligned")
     scale = scale if scale is not None else Dh ** -0.5
     lib = _library()
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    mask = (int(bool(causal)), int(window), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            DTYPE_CODES[q.dtype], B, Sq, Skv, Hq, Hkv, Dh, int(bool(causal)),
-            int(window), float(scale), stream)
+        if path == "wgmma":
+            err = lib.flash_attention_fwd_wgmma(*ptrs, B, Sq, Skv, Hq, Hkv,
+                                                Dh, *mask, stream)
+        else:
+            err = lib.flash_attention_fwd(*ptrs, DTYPE_CODES[q.dtype], B, Sq,
+                                          Skv, Hq, Hkv, Dh, *mask, stream)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention launch failed ({path}): error "
+                           f"{err}")
     flash_attention.launches += 1
+    flash_attention.route_launches[path] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.route_launches = dict.fromkeys(sorted(set(ROUTES.values())),
+                                               0)

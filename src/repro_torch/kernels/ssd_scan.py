@@ -5,12 +5,17 @@
 and C (G = 1) and a zero initial state. On a CUDA tensor it runs the
 hand-written sm_90a kernel in ``csrc/ssd_scan.cu`` (three launches: chunk
 states, the carry over chunks, the outputs; see the source for the
-design and its bound) or raises. On a CPU tensor it runs
+design and its bound) or raises. `ROUTES` names the kernel for each
+dtype: ``"mma_sync"`` (bf16, tensor cores, the f32 intermediates split
+into bf16 hi + lo) or ``"cuda_core"`` (float32 arithmetic). x, b and c
+go to the kernel uncopied, through their strides (the model passes
+strided views of its conv output). On a CPU tensor it runs
 `ssd_scan_torch`, the plain version, which is also what the kernel is
 held against on the card.
 
-`ssd_scan.launches` counts calls that launched the kernel; CPU calls do
-not count.
+`ssd_scan.launches` counts calls that launched the kernel and
+`ssd_scan.route_launches` those calls per route; CPU calls do not
+count.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from repro_torch.kernels.ref import ssd_chunked
 
 HEAD_DIMS = (16, 32, 64)                # templates in the CUDA source
 MAX_CHUNK = 256                         # the kernel's block scan
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "mma_sync"}
 
 
 def ssd_scan_torch(x, dt, a_log, b, c, d, *, chunk: int = 128):
@@ -46,7 +51,7 @@ def _check(x, dt, a_log, b, c, d, Q):
                          f"{tuple(d.shape)}")
     if S % Q:
         raise ValueError(f"seq {S} not divisible by chunk {Q}")
-    if x.dtype not in DTYPE_CODES or b.dtype != x.dtype or c.dtype != x.dtype:
+    if x.dtype not in ROUTES or b.dtype != x.dtype or c.dtype != x.dtype:
         raise ValueError(f"ssd_scan takes x, b, c in one of float32 or "
                          f"bfloat16; got {x.dtype}, {b.dtype}, {c.dtype}")
     if any(t.device != x.device for t in (dt, a_log, b, c, d)):
@@ -58,9 +63,28 @@ def _library():
     """The built kernel library with its C signatures declared."""
     lib = cuda_build.load("ssd_scan")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.ssd_scan_fwd.argtypes = [p] * 10 + [i] * 7 + [p]
-    lib.ssd_scan_fwd.restype = i
+    for fn in (lib.ssd_scan_fwd, lib.ssd_scan_fwd_mma):
+        fn.argtypes = [p] * 10 + [i] * 6 + [ctypes.c_longlong] * 7 + [p]
+        fn.restype = i
     return lib
+
+
+def _strides(x, b, c, path):
+    """The element strides the kernel reads x, b and c through; raises on
+    a layout the route cannot read."""
+    if x.stride(3) != 1 or b.stride(3) != 1 or c.stride(3) != 1:
+        raise ValueError("ssd_scan needs x, b and c with a unit inner stride")
+    strides = (x.stride(0), x.stride(1), x.stride(2), b.stride(0),
+               b.stride(1), c.stride(0), c.stride(1))
+    if path == "mma_sync":
+        N = b.shape[3]
+        if N % 16 or any(s % 8 for s in strides) or any(
+                t.data_ptr() % 16 for t in (x, b, c)):
+            raise ValueError(
+                "the mma_sync kernel needs N a multiple of 16 and x, b, c "
+                "rows 16-byte aligned (pointers 16-byte aligned, strides "
+                f"multiples of 8 elements); got N={N}, strides {strides}")
+    return strides
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
@@ -71,7 +95,8 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     Returns (y (B,S,H,P) in x.dtype, h_final (B,H,P,N) float32): the SSD
     scan from a zero state with chunks of min(chunk, S) steps. On the
     card: P in {16, 32, 64}, chunk <= 256, and N small enough that the
-    output launch's tiles fit a block's shared memory (N = 128: 101 KB).
+    output launch's tiles fit a block's shared memory (N = 128 at chunk
+    256: 101 KB in float32, 155 KB in bfloat16).
     """
     Q = min(chunk, x.shape[1])
     _check(x, dt, a_log, b, c, d, Q)
@@ -85,26 +110,29 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if P not in HEAD_DIMS or Q > MAX_CHUNK:
         raise ValueError(f"the CUDA kernel takes P in {HEAD_DIMS} and chunks "
                          f"of at most {MAX_CHUNK}; got P={P}, chunk={Q}")
+    path = ROUTES[x.dtype]
+    strides = _strides(x, b, c, path)
     lib = _library()
-    x, b, c = x.contiguous(), b.contiguous(), c.contiguous()
     dt = dt.float().contiguous()
     a_log, d = a_log.float().contiguous(), d.float().contiguous()
     nc = S // Q
-    y = torch.empty_like(x)
+    y = torch.empty(B, S, H, P, dtype=x.dtype, device=x.device)
     h_final = torch.empty(B, H, P, N, dtype=torch.float32, device=x.device)
     states = torch.empty(B, nc, H, P, N, dtype=torch.float32, device=x.device)
     cum_end = torch.empty(B, nc, H, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ssd_scan_fwd(
-            x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
-            c.data_ptr(), d.data_ptr(), y.data_ptr(), h_final.data_ptr(),
-            states.data_ptr(), cum_end.data_ptr(), DTYPE_CODES[x.dtype], B, S,
-            H, P, N, Q, stream)
+        fn = lib.ssd_scan_fwd_mma if path == "mma_sync" else lib.ssd_scan_fwd
+        err = fn(x.data_ptr(), dt.data_ptr(), a_log.data_ptr(), b.data_ptr(),
+                 c.data_ptr(), d.data_ptr(), y.data_ptr(), h_final.data_ptr(),
+                 states.data_ptr(), cum_end.data_ptr(), B, S, H, P, N, Q,
+                 *strides, stream)
     if err:
-        raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
+        raise RuntimeError(f"ssd_scan launch failed ({path}): error {err}")
     ssd_scan.launches += 1
+    ssd_scan.route_launches[path] += 1
     return y, h_final
 
 
 ssd_scan.launches = 0
+ssd_scan.route_launches = dict.fromkeys(sorted(ROUTES.values()), 0)

@@ -90,7 +90,7 @@ def _mixer_seq(cfg: ModelConfig, lp: dict, x: torch.Tensor,
         xs.reshape(B, S, H, cfg.ssm_head_dim), dt, lp["a_log"],
         b.reshape(B, S, cfg.ssm_n_groups, cfg.ssm_state),
         c.reshape(B, S, cfg.ssm_n_groups, cfg.ssm_state), lp["d_skip"],
-        h0=ssm_state, chunk=cfg.ssm_chunk)
+        h0=ssm_state, chunk=cfg.ssm_chunk, impl=cfg.ssm_impl)
     y = _gated_norm(y.reshape(B, S, di), z, lp["gnorm"], cfg.norm_eps)
     return y @ lp["out_proj"].to(dtype), conv_new, ssm_new
 

@@ -1,5 +1,6 @@
 """Tests that need the card: the CUDA admission, flash-attention, SSD and
-RG-LRU kernels against their plain versions, card-vs-CPU plan equality
+RG-LRU kernels against their plain versions (the tensor-core routes at
+the edges of their tiles too), card-vs-CPU plan equality
 and card-vs-CPU serving (SmolLM, Mamba-2, RecurrentGemma). They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
@@ -96,6 +97,37 @@ def test_flash_kernel_equals_plain_version(cuda, case, dtype):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+# bf16 cases that cross the wgmma kernel's 64-key tiles and 128-row
+# blocks: Sq, Skv not multiples of 64; Sq != Skv; a window that ends
+# inside a tile; G = 3 and G = 16; Dh 64, 128 and 256
+FLASH_EDGE_CASES = [
+    (2, 200, 200, 6, 2, 64, True, 0), (1, 1000, 1000, 16, 1, 128, True, 0),
+    (1, 1024, 1024, 4, 4, 256, True, 300), (1, 200, 1000, 6, 2, 128, False, 0),
+    (1, 1000, 200, 3, 1, 64, True, 0), (2, 1000, 1000, 8, 8, 256, False, 300),
+    (1, 77, 77, 16, 1, 128, True, 5), (2, 1000, 1000, 48, 16, 64, True, 300),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_EDGE_CASES, ids=str)
+def test_flash_wgmma_route_at_tile_edges(cuda, case):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_torch,
+                                                     route)
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window = case
+    assert route(torch.bfloat16, Dh) == "wgmma"
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]) + 1)
+    q = torch.randn(B, Sq, Hq, Dh, generator=gen, device=cuda).bfloat16()
+    k = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).bfloat16()
+    before = flash_attention.route_launches["wgmma"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_torch(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["wgmma"] == before + 1
+    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
+                               rtol=2e-2)
+
+
 def test_serving_on_card_equals_cpu(cuda):
     import dataclasses
 
@@ -157,6 +189,58 @@ def test_ssd_kernel_equals_plain_version(cuda, case, dtype):
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
     assert y.dtype == dt and h.dtype == torch.float32
+    tol = 5e-3 if dtype == "float32" else 1e-1
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
+
+
+# B, S, H, P, N, chunk: chunks of 64 and 256 with N 128, P 16, H not a
+# multiple of the output launch's head group
+SSD_EDGE_CASES = [(2, 512, 8, 64, 128, 64), (1, 1024, 12, 64, 128, 256),
+                  (2, 256, 8, 16, 64, 64), (1, 256, 5, 32, 128, 128)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_EDGE_CASES, ids=str)
+def test_ssd_kernel_at_tile_edges(cuda, case, dtype):
+    from repro_torch.kernels.ssd_scan import ROUTES, ssd_scan, ssd_scan_torch
+    dt = getattr(torch, dtype)
+    args = _ssd_inputs(case, dt, cuda, seed=sum(case) + 1)
+    route = ROUTES[dt]
+    before = ssd_scan.route_launches[route]
+    y, h = ssd_scan(*args, chunk=case[5])
+    y_want, h_want = ssd_scan_torch(*args, chunk=case[5])
+    torch.cuda.synchronize()
+    assert ssd_scan.route_launches[route] == before + 1
+    tol = 5e-3 if dtype == "float32" else 1e-1
+    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_kernel_reads_the_mixers_strided_views(cuda, dtype):
+    """x, b and c as `_mixer_seq` passes them: slices of one (B, S, di +
+    2N) conv output, uncopied."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+    B, S, H, P, N, Q = 2, 512, 8, 64, 128, 256
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(11)
+    xc = torch.as_tensor(rng.normal(size=(B, S, H * P + 2 * N)),
+                         dtype=torch.float32, device=cuda).to(dt)
+    xs, b, c = torch.split(xc, [H * P, N, N], dim=-1)
+    x, b, c = xs.reshape(B, S, H, P), b.reshape(B, S, 1, N), c.reshape(
+        B, S, 1, N)
+    assert not (x.is_contiguous() or b.is_contiguous())
+    dts = torch.nn.functional.softplus(torch.as_tensor(
+        rng.normal(size=(B, S, H)), dtype=torch.float32, device=cuda))
+    a_log = torch.as_tensor(rng.uniform(0.0, 1.5, H), dtype=torch.float32,
+                            device=cuda)
+    d = torch.ones(H, device=cuda)
+    y, h = ssd_scan(x, dts, a_log, b, c, d, chunk=Q)
+    y_want, h_want = ssd_scan_torch(x.contiguous(), dts, a_log,
+                                    b.contiguous(), c.contiguous(), d,
+                                    chunk=Q)
+    torch.cuda.synchronize()
     tol = 5e-3 if dtype == "float32" else 1e-1
     torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
