@@ -95,8 +95,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     Returns (y (B,S,H,P) in x.dtype, h_final (B,H,P,N) float32): the SSD
     scan from a zero state with chunks of min(chunk, S) steps. On the
     card: P in {16, 32, 64}, chunk <= 256, and N small enough that the
-    output launch's tiles fit a block's shared memory (N = 128 at chunk
-    256: 101 KB in float32, 155 KB in bfloat16).
+    output launch's tiles fit a block's 232,448 B (227 KiB) of shared
+    memory. At P 64 and N 128 the float32 route's `ssd_out` takes
+    101,152 B at any chunk (N up to 384 fits); the bfloat16 route's
+    `ssd_out_mma` takes 104,448 B at chunk 64 and 205,824 B at chunk
+    256 (N up to 272 fits there). A shape that does not fit fails in
+    ``cudaFuncSetAttribute``, and the wrapper raises.
     """
     Q = min(chunk, x.shape[1])
     _check(x, dt, a_log, b, c, d, Q)

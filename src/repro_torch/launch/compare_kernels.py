@@ -2,15 +2,15 @@
 repository on one card, in turns, so that two versions are compared on
 the same card within one run.
 
-    python3 src/repro_torch/launch/compare_kernels.py TREE [TREE ...] \
-        [--order 0,1,1,0] [--reps 50]
+    python3 src/repro_torch/launch/compare_kernels.py TREE [TREE ...]
 
 Each TREE is the root of a checkout (``.`` for this one; an older commit
-unpacked with ``git archive`` into a git-ignored directory). Each turn
-runs one subprocess with ``TREE/src`` first on the path, which builds
-that tree's kernels into ``TREE/build`` and times them with CUDA events
-(median of ``--reps`` launches, each behind a spin kernel so the events
-time the device work alone) on the same seeded inputs:
+unpacked with ``git archive`` into a git-ignored directory). The trees
+take their turns in the order given and then in reverse (0, 1, 1, 0 for
+two). Each turn runs one subprocess with ``TREE/src`` first on the path,
+which builds that tree's kernels into ``TREE/build`` and times them with
+CUDA events (median of 50 launches, each behind a spin kernel so the
+events time the device work alone) on the same seeded inputs:
 
   - flash_attention at (4, 2048, 24:8, 128) causal, bf16 (phi4-mini's
     prefill) and (4, 2048, 16:1, 256) causal, window 2048, bf16
@@ -42,14 +42,13 @@ sys.path.insert(0, sys.argv[1])
 import torch.nn.functional as F
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
-reps = int(sys.argv[2])
 dev = torch.device("cuda", 0)
 
 def median_ms(fn):
     for _ in range(5):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(50):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(4_000_000)
@@ -84,16 +83,12 @@ print(json.dumps(out))
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="+", type=Path)
-    ap.add_argument("--order", default=None,
-                    help="comma-separated tree indices (default: 0,1,...,1,0)")
-    ap.add_argument("--reps", type=int, default=50)
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("compare_kernels: CUDA is not available")
     trees = [t.resolve() for t in args.trees]
-    order = ([int(i) for i in args.order.split(",")] if args.order else
-             list(range(len(trees))) + list(range(len(trees)))[::-1])
+    order = list(range(len(trees))) + list(range(len(trees)))[::-1]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -102,9 +97,9 @@ def main(argv=None):
     turns = []
     for i in order:
         res = subprocess.run(
-            [sys.executable, "-c", CHILD, str(trees[i] / "src"),
-             str(args.reps)], cwd=trees[i], capture_output=True, text=True,
-            timeout=1200, env={**os.environ, "PYTHONPATH": ""})
+            [sys.executable, "-c", CHILD, str(trees[i] / "src")],
+            cwd=trees[i], capture_output=True, text=True, timeout=1200,
+            env={**os.environ, "PYTHONPATH": ""})
         if res.returncode:
             raise SystemExit(f"turn of {trees[i]} failed:\n{res.stderr[-4000:]}")
         times = json.loads(res.stdout.strip().splitlines()[-1])

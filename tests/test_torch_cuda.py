@@ -73,34 +73,9 @@ FLASH_CASES = [
     # RecurrentGemma: Dh 256, 16:1 heads, a window that bites
     (1, 1024, 1024, 16, 1, 256, True, 512),
     (1, 2048, 2048, 16, 1, 256, True, 2048),
-]
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
-def test_flash_kernel_equals_plain_version(cuda, case, dtype):
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_torch)
-    B, Sq, Skv, Hq, Hkv, Dh, causal, window = case
-    dt = getattr(torch, dtype)
-    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
-    q = torch.randn(B, Sq, Hq, Dh, generator=gen, device=cuda).to(dt)
-    k = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dt)
-    v = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dt)
-    before = flash_attention.launches
-    got = flash_attention(q, k, v, causal=causal, window=window)
-    want = flash_attention_torch(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
-    assert got.dtype == dt and got.shape == q.shape
-    tol = 2e-5 if dtype == "float32" else 2e-2
-    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
-
-
-# bf16 cases that cross the wgmma kernel's 64-key tiles and 128-row
-# blocks: Sq, Skv not multiples of 64; Sq != Skv; a window that ends
-# inside a tile; G = 3 and G = 16; Dh 64, 128 and 256
-FLASH_EDGE_CASES = [
+    # across the wgmma kernel's 64-key tiles and 128-row blocks: Sq, Skv
+    # not multiples of 64; Sq != Skv; a window that ends inside a tile;
+    # G = 3 and G = 16; Dh 64, 128 and 256
     (2, 200, 200, 6, 2, 64, True, 0), (1, 1000, 1000, 16, 1, 128, True, 0),
     (1, 1024, 1024, 4, 4, 256, True, 300), (1, 200, 1000, 6, 2, 128, False, 0),
     (1, 1000, 200, 3, 1, 64, True, 0), (2, 1000, 1000, 8, 8, 256, False, 300),
@@ -108,24 +83,31 @@ FLASH_EDGE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", FLASH_EDGE_CASES, ids=str)
-def test_flash_wgmma_route_at_tile_edges(cuda, case):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_kernel_equals_plain_version(cuda, case, dtype):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_torch,
                                                      route)
     B, Sq, Skv, Hq, Hkv, Dh, causal, window = case
-    assert route(torch.bfloat16, Dh) == "wgmma"
-    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]) + 1)
-    q = torch.randn(B, Sq, Hq, Dh, generator=gen, device=cuda).bfloat16()
-    k = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).bfloat16()
-    v = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).bfloat16()
-    before = flash_attention.route_launches["wgmma"]
+    dt = getattr(torch, dtype)
+    path = route(dt, Dh)
+    assert path == ("wgmma" if dtype == "bfloat16" and Dh >= 64
+                    else "cuda_core")
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
+    q = torch.randn(B, Sq, Hq, Dh, generator=gen, device=cuda).to(dt)
+    k = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dt)
+    v = torch.randn(B, Skv, Hkv, Dh, generator=gen, device=cuda).to(dt)
+    before = flash_attention.launches
+    on_route = flash_attention.route_launches[path]
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_torch(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.route_launches["wgmma"] == before + 1
-    torch.testing.assert_close(got.float(), want.float(), atol=2e-2,
-                               rtol=2e-2)
+    assert flash_attention.launches == before + 1
+    assert flash_attention.route_launches[path] == on_route + 1
+    assert got.dtype == dt and got.shape == q.shape
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
 def test_serving_on_card_equals_cpu(cuda):
@@ -155,10 +137,14 @@ def test_serving_on_card_equals_cpu(cuda):
 
 
 # B, S, H, P, N, chunk: tests/test_kernels.py's SSD_CASES, Mamba-2's smoke
-# shape, and the serving shape at batch 1
+# shape, the serving shape at batch 1, then the tile edges of the bf16
+# route: chunks of 64 and 256 with N 128, P 16, H not a multiple of the
+# output launch's head group
 SSD_CASES = [(2, 64, 4, 16, 32, 16), (1, 128, 8, 32, 64, 32),
              (2, 96, 4, 64, 16, 32), (2, 48, 4, 32, 16, 16),
-             (1, 512, 80, 64, 128, 256)]
+             (1, 512, 80, 64, 128, 256),
+             (2, 512, 8, 64, 128, 64), (1, 1024, 12, 64, 128, 256),
+             (2, 256, 8, 16, 64, 64), (1, 256, 5, 32, 128, 128)]
 
 
 def _ssd_inputs(case, dtype, dev, seed, overflow=False):
@@ -180,38 +166,19 @@ def _ssd_inputs(case, dtype, dev, seed, overflow=False):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", SSD_CASES, ids=str)
 def test_ssd_kernel_equals_plain_version(cuda, case, dtype):
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_torch
+    from repro_torch.kernels.ssd_scan import ROUTES, ssd_scan, ssd_scan_torch
     dt = getattr(torch, dtype)
+    path = ROUTES[dt]
+    assert path == ("mma_sync" if dtype == "bfloat16" else "cuda_core")
     args = _ssd_inputs(case, dt, cuda, seed=sum(case))
     before = ssd_scan.launches
+    on_route = ssd_scan.route_launches[path]
     y, h = ssd_scan(*args, chunk=case[5])
     y_want, h_want = ssd_scan_torch(*args, chunk=case[5])
     torch.cuda.synchronize()
     assert ssd_scan.launches == before + 1
+    assert ssd_scan.route_launches[path] == on_route + 1
     assert y.dtype == dt and h.dtype == torch.float32
-    tol = 5e-3 if dtype == "float32" else 1e-1
-    torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
-    torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
-
-
-# B, S, H, P, N, chunk: chunks of 64 and 256 with N 128, P 16, H not a
-# multiple of the output launch's head group
-SSD_EDGE_CASES = [(2, 512, 8, 64, 128, 64), (1, 1024, 12, 64, 128, 256),
-                  (2, 256, 8, 16, 64, 64), (1, 256, 5, 32, 128, 128)]
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", SSD_EDGE_CASES, ids=str)
-def test_ssd_kernel_at_tile_edges(cuda, case, dtype):
-    from repro_torch.kernels.ssd_scan import ROUTES, ssd_scan, ssd_scan_torch
-    dt = getattr(torch, dtype)
-    args = _ssd_inputs(case, dt, cuda, seed=sum(case) + 1)
-    route = ROUTES[dt]
-    before = ssd_scan.route_launches[route]
-    y, h = ssd_scan(*args, chunk=case[5])
-    y_want, h_want = ssd_scan_torch(*args, chunk=case[5])
-    torch.cuda.synchronize()
-    assert ssd_scan.route_launches[route] == before + 1
     tol = 5e-3 if dtype == "float32" else 1e-1
     torch.testing.assert_close(y.float(), y_want.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
