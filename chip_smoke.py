@@ -9,19 +9,24 @@ raising on failure so the run exits non-zero:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
      TF32 off for float32 matmuls (the card-vs-CPU checks depend on it);
   2. build every kernel of the port from ``src/repro_torch/csrc``, one
-     nvcc per source, all started together; count the tensor-core
-     instructions (HGMMA, HMMA) of each kernel function with
-     ``cuobjdump -sass`` and fail if the wgmma flash kernel or the
-     mma.sync SSD kernels have none;
+     nvcc per source, all started together; count the tensor-core and
+     TMA instructions (HGMMA, HMMA, UTMALDG, UBLKCP) of each kernel
+     function with ``cuobjdump -sass`` and fail if the wgmma flash
+     kernel or the mma.sync SSD kernels have no tensor-core instruction,
+     or the RG-LRU ring kernel no TMA or bulk copy;
   3. kernel phase: each kernel against its plain PyTorch version on the
      card, on the same random inputs, at the main paths' shapes and
-     tests/test_kernels.py's cases: the admission round exactly; flash
+     tests/test_kernels.py's cases: the admission rounds of an epoch
+     exactly (R rounds in one call, at the planner's N = 100,000, at
+     R = 5 and at an N beyond one wave of blocks), timed per epoch
+     call and per one-round call; flash
      attention within 2e-5 in float32 and 2e-2 in bfloat16, Dh 256 at
      16:1 heads with a window that bites included, and bf16 cases across
      the wgmma route's tile edges; the SSD scan within 5e-3 / 1e-1 (y)
      and 5e-3 (h_final), with a case whose masked triangle overflows,
      tile-edge cases and x, b, c as the mixer's strided views; the
-     RG-LRU scan within 1e-5 / 3e-2 (y) and 1e-4 / 1e-2 (h). Each case
+     RG-LRU scan bit-equal on its ring route and within 1e-5 / 3e-2 (y)
+     and 1e-4 / 1e-2 (h) on its column route. Each case
      records its route and its margin (the share of the allclose bar its
      worst element uses). Each kernel is timed with CUDA events at its
      main path's shape, beside one PyTorch library call where one
@@ -54,11 +59,11 @@ raising on failure so the run exits non-zero:
 
 Phases 5 and 7 are the main paths: every kernel's launch counter is set
 to 0 just before each path and read just after; each path must have
-launched exactly its kernels (2*R*T admission launches in the sweep;
-per prefill 32 flash launches for phi4-mini, 64 SSD launches for
-Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma) and no
-others, every flash launch on the wgmma route and every SSD launch on
-the mma_sync route.
+launched exactly its kernels (T admission launches in the sweep, one
+per epoch; per prefill 32 flash launches for phi4-mini, 64 SSD launches
+for Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma) and no
+others, every flash launch on the wgmma route, every SSD launch on the
+mma_sync route and every RG-LRU launch on the ring route.
 
 Prints the nvidia-smi line, one line of phase results, the ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``. The full record
@@ -186,36 +191,65 @@ def _kernel_record(name, source, replaces, kernel, plain, library, *,
             "bytes": nbytes, "flops": flops}
 
 
+# N, R, seed of the admission checks: the planner's size, five regions,
+# and an N that needs more 1,024-container tiles than the card holds
+# blocks at once
+ADMISSION_CASES = [(100_000, 3, 0), (12_345, 5, 1), (400_000, 3, 2)]
+
+
 def admission_phase(dev):
     from repro_torch.cluster.placement_kernel import (admission_round,
-                                                      admission_round_torch)
+                                                      admission_round_torch,
+                                                      admission_rounds,
+                                                      admission_rounds_torch)
     checked = []
-    for N, R, seed in ((100_000, 3, 0), (12_345, 5, 1), (100_000, 3, 2)):
+    for N, R, seed in ADMISSION_CASES:
         args = _admission_inputs(N, R, seed, dev)
-        got = admission_round(*args)
-        want = admission_round_torch(*args)
+        got = admission_rounds(*args, R)
+        want = admission_rounds_torch(*args, R)
         torch.cuda.synchronize()
         err = max(int((g.long() - w.long()).abs().max()) for g, w in
                   zip(got, want))
         if err != 0:
-            raise AssertionError(f"admission_round differs from its plain "
+            raise AssertionError(f"admission_rounds differs from its plain "
                                  f"version at N={N}, R={R}: max abs {err}")
-        if not bool((want[2] > args[5]).any()):
+        remaining, contended = args[5], 0
+        for w in want[2]:
+            contended += int((w > remaining).any())
+            remaining = remaining - torch.minimum(w, remaining)
+        if not contended:
             raise AssertionError(f"kernel inputs at N={N}, R={R} are not "
                                  f"contended")
-        checked.append({"N": N, "R": R, "max_abs_err": err})
-    # time at the main path's shape: the planner's N = 100k, R = 3
+        checked.append({"N": N, "R": R, "rounds": R, "max_abs_err": err,
+                        "contended_rounds": contended})
+    # time at the main path's shape: one epoch of the planner, N = 100k,
+    # R = 3 rounds in one call
     args = _admission_inputs(100_000, 3, 0, dev)
     N, R = args[0].shape
     # each input read once, each output written once
-    nbytes = (N * R * 8 + N * (4 + 1 + 4 + 4) + R * 4) + (N * 8 + R * 4)
-    return _kernel_record(
+    # (dst' and struck'; want is (rounds, R) with rounds = R)
+    nbytes = (N * R * 8 + N * (4 + 1 + 4 + 4) + R * 4) + (N * 8 + R * R * 4)
+    record = _kernel_record(
         "admission_round", "src/repro_torch/csrc/admission_round.cu",
         "src/repro/cluster/placement_pallas.py:120",
-        lambda: admission_round(*args), lambda: admission_round_torch(*args),
+        lambda: admission_rounds(*args, R),
+        lambda: admission_rounds_torch(*args, R),
         None, nbytes=nbytes, flops=0, peak_flops=None, checked=checked,
         max_abs_err=0, tolerance="exact", kernel_head_start=2_000_000,
         plain_head_start=20_000_000)
+    # the latency floor: one launch (a one-element fill) and each round's
+    # grid barrier, read as the time a round adds to a one-round call
+    one = torch.zeros(1, device=dev)
+    record["round_ms"] = _median_ms(lambda: admission_round(*args),
+                                    head_start_cycles=2_000_000)
+    record["launch_ms"] = _median_ms(lambda: one.fill_(1.0),
+                                     head_start_cycles=2_000_000)
+    record["added_round_ms"] = (record["ms"] - record["round_ms"]) / (R - 1)
+    record["plain_round_ms"] = _median_ms(
+        lambda: admission_round_torch(*args), head_start_cycles=20_000_000)
+    record["shape"] = {"N": N, "R": R, "rounds": R}
+    record["library"] = "none: no single PyTorch call computes it"
+    return record
 
 
 # B, Sq, Skv, Hq, Hkv, Dh, causal, window: tests/test_kernels.py's
@@ -414,9 +448,11 @@ def ssd_phase(dev):
     return record
 
 
-# B, S, W: tests/test_kernels.py's RGLRU_CASES and a ragged width; the
-# main path's shape comes last
-RGLRU_CASES = [(2, 64, 128), (1, 128, 256), (3, 32, 512), (2, 37, 100)]
+# B, S, W: tests/test_kernels.py's RGLRU_CASES, a ragged width (the
+# column route) and ragged tiles of the ring route; the main path's shape
+# comes last
+RGLRU_CASES = [(2, 64, 128), (1, 128, 256), (3, 32, 512), (2, 37, 100),
+               (2, 100, 136)]
 RGLRU_MAIN = (4, 2048, 4096)                     # recurrentgemma-9b, a bf16
 RGLRU_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (3e-2, 1e-2)}
 
@@ -435,26 +471,36 @@ def _rglru_inputs(case, dtype, dev, seed):
 
 
 def rglru_phase(dev):
-    from repro_torch.kernels.rglru_scan import rglru_scan, rglru_scan_torch
+    """Each case against the plain version: bit-equal on the ring route,
+    within RGLRU_TOL on the column route."""
+    from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_torch,
+                                                route)
     checked = []
     runs = [(c, dt) for c in RGLRU_CASES for dt in RGLRU_TOL]
     runs.append((RGLRU_MAIN, torch.bfloat16))
     for i, (case, dtype) in enumerate(runs):
         args = _rglru_inputs(case, dtype, dev, seed=i)
+        path = route(*args[:2])
         y, h = rglru_scan(*args)
         y_want, h_want = rglru_scan_torch(*args)
         torch.cuda.synchronize()
-        tol, htol = RGLRU_TOL[dtype]
+        tol, htol = (0.0, 0.0) if path == "ring" else RGLRU_TOL[dtype]
         err = float((y - y_want).abs().max())
         h_err = float((h - h_want).abs().max())
-        if not (torch.allclose(y, y_want, atol=tol, rtol=tol)
-                and torch.allclose(h, h_want, atol=htol, rtol=htol)):
-            raise AssertionError(f"rglru_scan differs from its plain version "
-                                 f"at {case} {dtype}: max abs y {err}, h "
-                                 f"{h_err}")
+        if path == "ring":
+            ok = torch.equal(y, y_want) and torch.equal(h, h_want)
+        else:
+            ok = (torch.allclose(y, y_want, atol=tol, rtol=tol)
+                  and torch.allclose(h, h_want, atol=htol, rtol=htol))
+        if not ok:
+            raise AssertionError(f"rglru_scan ({path}) differs from its plain "
+                                 f"version at {case} {dtype}: max abs y "
+                                 f"{err}, h {h_err}")
         checked.append({"case": list(case), "dtype": str(dtype)[6:],
-                        "max_abs_err": err, "h_max_abs_err": h_err,
-                        "tol": tol, "htol": htol})
+                        "route": path, "max_abs_err": err,
+                        "h_max_abs_err": h_err, "tol": tol, "htol": htol})
+    if checked[-1]["route"] != "ring":
+        raise AssertionError("the main path's shape is not on the ring route")
     B, S, W = RGLRU_MAIN
     args = _rglru_inputs(RGLRU_MAIN, torch.bfloat16, dev, seed=len(runs) - 1)
     # a in bf16, gx and h_seq in f32, h0 and h_last in f32; 2 ops a step
@@ -465,10 +511,12 @@ def rglru_phase(dev):
         lambda: rglru_scan(*args), lambda: rglru_scan_torch(*args), None,
         nbytes=nbytes, flops=2 * B * S * W, peak_flops=FP32_FLOP_PER_S,
         checked=checked, max_abs_err=max(c["max_abs_err"] for c in checked),
-        tolerance="y 1e-5 float32, 3e-2 bfloat16; h 1e-4 float32, 1e-2 "
-                  "bfloat16 (abs and rel)", kernel_head_start=4_000_000,
-        plain_head_start=400_000_000, plain_reps=5)
+        tolerance="ring: exact (bit-equal); column: y 1e-5 float32, 3e-2 "
+                  "bfloat16; h 1e-4 float32, 1e-2 bfloat16 (abs and rel)",
+        kernel_head_start=4_000_000, plain_head_start=400_000_000,
+        plain_reps=5)
     record["shape"] = {"B": B, "S": S, "W": W, "a_dtype": "bfloat16"}
+    record["kernel_route"] = checked[-1]["route"]
     record["library"] = ("none: no single PyTorch call computes a linear "
                          "recurrence")
     return record
@@ -561,7 +609,7 @@ def full_width(dev):
     sweep_s = time.perf_counter() - t0
     launches = _read_counts()
     want = {name: 0 for name in launches}
-    want["admission_round"] = 2 * R * T
+    want["admission_round"] = T                    # one call an epoch
     if launches != want:
         raise AssertionError(f"kernel launches {launches} on the sweep's "
                              f"main path, expected {want}")
@@ -589,12 +637,13 @@ def full_width(dev):
 
 
 def _kernel_counters():
-    """{name: the wrapper whose `launches` counts that kernel's launches}."""
-    from repro_torch.cluster.placement_kernel import admission_round
+    """{library name: the wrapper whose `launches` counts that kernel's
+    launches}."""
+    from repro_torch.cluster.placement_kernel import admission_rounds
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
-    return {"admission_round": admission_round,
+    return {"admission_round": admission_rounds,
             "flash_attention": flash_attention, "ssd_scan": ssd_scan,
             "rglru_scan": rglru_scan}
 
@@ -617,9 +666,13 @@ def _read_routes() -> dict:
             if hasattr(fn, "route_launches")}
 
 
+SASS_OPS = ("HGMMA", "HMMA", "UTMALDG", "UBLKCP")
+
+
 def sass_counts(libs) -> dict:
-    """Tensor-core instructions in each built kernel function, from
-    `cuobjdump -sass`: {library: {function: {"HGMMA": n, "HMMA": n}}}."""
+    """Tensor-core and TMA instructions in each built kernel function,
+    from `cuobjdump -sass`: {library: {function: {op: n}}} for the ops of
+    SASS_OPS."""
     import os
     import re
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / (
@@ -634,20 +687,22 @@ def sass_counts(libs) -> dict:
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
-                funcs[fn] = {"HGMMA": 0, "HMMA": 0}
+                funcs[fn] = dict.fromkeys(SASS_OPS, 0)
             elif fn is not None:
-                if "HGMMA." in line:
-                    funcs[fn]["HGMMA"] += 1
-                elif "HMMA." in line:
-                    funcs[fn]["HMMA"] += 1
+                op = re.search(rf"\b({'|'.join(SASS_OPS)})\b", line)
+                if op:
+                    funcs[fn][op.group(1)] += 1
         out[name] = funcs
-    want = {("flash_attention", "flash_fwd_wgmma", "HGMMA"),
-            ("ssd_scan", "ssd_states_mma", "HMMA"),
-            ("ssd_scan", "ssd_out_mma", "HMMA")}
-    for lib, kernel, op in want:
+    want = {("flash_attention", "flash_fwd_wgmma", ("HGMMA",)),
+            ("ssd_scan", "ssd_states_mma", ("HMMA",)),
+            ("ssd_scan", "ssd_out_mma", ("HMMA",)),
+            ("rglru_scan", "rglru_ring", ("UTMALDG", "UBLKCP"))}
+    for lib, kernel, ops in want:
         found = [f for f in out[lib] if kernel in f]
-        if not found or not all(out[lib][f][op] for f in found):
-            raise AssertionError(f"{lib}: no {op} instructions in {kernel} "
+        if not found or not all(any(out[lib][f][op] for op in ops)
+                                for f in found):
+            raise AssertionError(f"{lib}: no {' or '.join(ops)} instructions "
+                                 f"in {kernel} "
                                  f"({ {f: out[lib][f] for f in found} })")
     return out
 
@@ -734,10 +789,10 @@ def kernels_vs_plain_bf16(dev, arch, switch, kernel):
     launches, routes = _read_counts(), _read_routes()
     want, _ = plain.prefill(params, batch)
     if launches[kernel] != BF16_LAYERS or routes[kernel][
-            TC_ROUTES[kernel]] != BF16_LAYERS:
+            MAIN_ROUTES[kernel]] != BF16_LAYERS:
         raise AssertionError(f"{arch}: {kernel} launches {launches[kernel]}"
                              f", routes {routes[kernel]}; expected "
-                             f"{BF16_LAYERS} on {TC_ROUTES[kernel]}")
+                             f"{BF16_LAYERS} on {MAIN_ROUTES[kernel]}")
     got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
@@ -754,12 +809,14 @@ def kernels_vs_plain_bf16(dev, arch, switch, kernel):
 
 
 # arch, the kernel launches of one prefill (one generate) at full width;
-# every flash and SSD launch there takes the tensor-core route
+# every flash and SSD launch there takes the tensor-core route, every
+# RG-LRU launch the TMA ring
 SERVE_FULL = [("phi4-mini-3.8b", {"flash_attention": 32}),
               ("mamba2-2.7b", {"ssd_scan": 64}),
               ("recurrentgemma-9b", {"rglru_scan": 26,
                                      "flash_attention": 12})]
-TC_ROUTES = {"flash_attention": "wgmma", "ssd_scan": "mma_sync"}
+MAIN_ROUTES = {"flash_attention": "wgmma", "ssd_scan": "mma_sync",
+               "rglru_scan": "ring"}
 
 
 def serving_full_width(dev, arch, expected, warmup_len):
@@ -790,7 +847,7 @@ def serving_full_width(dev, arch, expected, warmup_len):
     if launches != want:
         raise AssertionError(f"{arch}: kernel launches {launches} on the "
                              f"serving path, expected {want} (one prefill)")
-    for name, path in TC_ROUTES.items():
+    for name, path in MAIN_ROUTES.items():
         if routes[name].get(path, 0) != want[name]:
             raise AssertionError(f"{arch}: {name} routes {routes[name]}, "
                                  f"expected all {want[name]} on {path}")
@@ -862,14 +919,15 @@ def main():
 
     sass = sass_counts(libs)
     for lib, funcs in sass.items():
-        tc = {f: n for f, n in funcs.items() if n["HGMMA"] or n["HMMA"]}
-        print(f"[{lib}] tensor-core instructions (cuobjdump -sass): "
-              f"{json.dumps(tc)}", flush=True)
+        found = {f: {op: c for op, c in n.items() if c}
+                 for f, n in funcs.items() if any(n.values())}
+        print(f"[{lib}] tensor-core and TMA instructions (cuobjdump -sass): "
+              f"{json.dumps(found)}", flush=True)
 
     kernels = {r["name"]: r for r in (admission_phase(dev), flash_phase(dev),
                                       ssd_phase(dev), rglru_phase(dev))}
-    kernels["flash_attention"]["sass"] = sass["flash_attention"]
-    kernels["ssd_scan"]["sass"] = sass["ssd_scan"]
+    for name in ("flash_attention", "ssd_scan", "rglru_scan"):
+        kernels[name]["sass"] = sass[name]
     bf16_check = [kernels_vs_plain_bf16(dev, arch, switch, kernel)
                   for arch, switch, kernel in BF16_CHECK]
     _free_device_memory()

@@ -15,11 +15,11 @@ capacity. The decision model and the host prologue are the reference's
 `plan_torch` ports `repro.cluster.placement_jax._plan_scan`: a Python
 loop over epochs of device-side tensor ops, float64 throughout, with no
 host sync inside the loop. Capacity admission runs a fixed R preference
-rounds per epoch through `placement_kernel.admission_round` (the CUDA
-kernel on the card). The reference ends its round loop early when a
-round wants or denies nothing; the rounds after such a round are
-no-ops, so a fixed count gives the same plan without reading a flag
-back to the host each round.
+rounds per epoch in one call of `placement_kernel.admission_rounds` (one
+launch of the CUDA kernel on the card). The reference ends its round
+loop early when a round wants or denies nothing; the rounds after such a
+round are no-ops, so a fixed count gives the same plan without reading
+a flag back to the host each round.
 """
 from __future__ import annotations
 
@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.cluster.migration import MigrationCostModel
-from repro_torch.cluster.placement_kernel import _prefer, admission_round
+from repro_torch.cluster.placement_kernel import _prefer, admission_rounds
 from repro_torch.cluster.slices import SliceFamily
 from repro_torch.device import resolve_device
 
@@ -250,13 +250,9 @@ def plan_torch(engine: PlacementEngine, demand, state_gb=1.0, initial=None,
             dst = torch.where(eligible & (net_best > 0.0) & (best != assign),
                               best, -1)
         else:
-            remaining = cap_t - occ
-            dst = torch.full((N,), -1, **i32)
-            struck = torch.zeros(N, **i32)
-            for _ in range(R):
-                dst, struck, want = admission_round(
-                    net, assign, eligible, dst, struck, remaining)
-                remaining = remaining - torch.minimum(want, remaining)
+            dst, _, _ = admission_rounds(
+                net, assign, eligible, torch.full((N,), -1, **i32),
+                torch.zeros(N, **i32), cap_t - occ, R)
         moved = dst >= 0
         dst_c = torch.where(moved, dst, 0)
         c_dst = c_row[dst_c]

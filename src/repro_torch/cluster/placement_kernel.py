@@ -9,17 +9,21 @@ its current one; the first ``remaining[r]`` wanters of each region, in
 container-index order, are admitted; each denied choice is struck into
 an int32 bitmask.
 
-`admission_round` replaces the Pallas TPU kernel of the same name
-(`src/repro/cluster/placement_pallas.py:120`). On a CUDA tensor it
-launches the hand-written sm_90a kernel in ``csrc/admission_round.cu``
-(two launches: per-block wanter counts, then ranked admission; see the
-source for the design and its bound) or raises. On a CPU tensor it runs
-`admission_round_torch`, the plain version, ported from the reference's
-`_admission_round_xla` (`src/repro/cluster/placement_jax.py:90`) with a
-``cumsum`` rank. The plain version is also what the kernel is held
-against on the card.
+`admission_rounds` runs all the rounds of one planner epoch, with the
+planner's update of the free slots between them, and replaces the Pallas
+TPU kernel `admission_round` (`src/repro/cluster/placement_pallas.py:120`),
+which the reference calls once per round. On a CUDA tensor it launches
+the hand-written sm_90a kernel in ``csrc/admission_round.cu`` (one
+cooperative launch per call, one grid barrier per round; see the source
+for the design and its bound) or raises. On a CPU tensor it runs
+`admission_rounds_torch`, the plain version: `admission_round_torch`,
+ported from the reference's `_admission_round_xla`
+(`src/repro/cluster/placement_jax.py:90`) with a ``cumsum`` rank, once
+per round. The plain version is also what the kernel is held against on
+the card. `admission_round` is the Pallas kernel's one-round contract,
+through the same kernel.
 
-`admission_round.launches` counts kernel launches (two per CUDA call);
+`admission_rounds.launches` counts kernel launches (one per CUDA call);
 CPU calls do not count.
 """
 from __future__ import annotations
@@ -32,7 +36,6 @@ import torch
 from repro_torch import cuda_build
 
 MAX_REGIONS = 31        # the strike bitmask is an int32
-BLOCK = 1024            # threads per block in csrc/admission_round.cu
 
 
 def _prefer(net, struck):
@@ -95,60 +98,90 @@ def _library():
     """The built kernel library with its C signatures declared."""
     lib = cuda_build.load("admission_round")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.admission_count.argtypes = [p, p, p, p, p, i, i, p, p]
-    lib.admission_count.restype = i
-    lib.admission_admit.argtypes = [p, p, p, p, p, p, i, i, p, p, p, p, p]
-    lib.admission_admit.restype = i
+    lib.admission_rounds_plan.argtypes = [i, p]
+    lib.admission_rounds_plan.restype = i
+    lib.admission_rounds.argtypes = [p] * 6 + [i] * 5 + [p] * 6
+    lib.admission_rounds.restype = i
     return lib
 
 
-def admission_round(net, assign, eligible, dst, struck, remaining):
-    """One capacity-admission preference round.
+def admission_rounds_torch(net, assign, eligible, dst, struck, remaining,
+                           rounds):
+    """Plain PyTorch version of `admission_rounds`: `rounds` calls of
+    `admission_round_torch`, each followed by the planner's update
+    ``remaining -= min(want_total, remaining)``."""
+    wants = []
+    for _ in range(rounds):
+        dst, struck, want = admission_round_torch(net, assign, eligible, dst,
+                                                  struck, remaining)
+        remaining = remaining - torch.minimum(want, remaining)
+        wants.append(want)
+    return dst, struck, torch.stack(wants)
+
+
+def admission_rounds(net, assign, eligible, dst, struck, remaining, rounds):
+    """The ``rounds`` capacity-admission preference rounds of one epoch.
 
     ``net`` (N, R) f64 epoch net savings; ``assign`` (N,) int32 current
     regions; ``eligible`` (N,) bool dwell gate; ``dst`` (N,) int32 round
     carry (-1 = unplaced); ``struck`` (N,) int32 denied-region bitmask;
-    ``remaining`` (R,) int32 free slots at round start. All contiguous,
-    on one device. Returns ``(dst', struck', want_total)``: two (N,)
-    int32 vectors and the (R,) int32 count of wanters per region, which
-    closes the caller's counters (admitted = min(want_total, remaining)).
+    ``remaining`` (R,) int32 free slots at the first round's start. All
+    contiguous, on one device. Between rounds ``remaining -=
+    min(want_total, remaining)``. Returns ``(dst', struck', want)``: two
+    (N,) int32 vectors after the last round and the (rounds, R) int32
+    count of wanters per region in each round. On a CUDA tensor one call
+    is one launch of the kernel.
     """
     _check(net, assign, eligible, dst, struck, remaining)
+    if rounds < 1:
+        raise ValueError(f"admission_rounds needs rounds >= 1, got {rounds}")
     if net.device.type == "cpu":
-        return admission_round_torch(net, assign, eligible, dst, struck,
-                                     remaining)
+        return admission_rounds_torch(net, assign, eligible, dst, struck,
+                                      remaining, rounds)
     if net.device.type != "cuda":
-        raise ValueError(f"admission_round runs on cuda or cpu tensors, "
+        raise ValueError(f"admission_rounds runs on cuda or cpu tensors, "
                          f"got {net.device}")
     N, R = net.shape
     if N == 0:
-        return dst.clone(), struck.clone(), torch.zeros_like(remaining)
+        return (dst.clone(), struck.clone(),
+                torch.zeros((rounds, R), dtype=torch.int32, device=net.device))
     lib = _library()
     dev = net.device
-    dst_out = torch.empty_like(dst)
-    struck_out = torch.empty_like(struck)
-    want_total = torch.empty_like(remaining)
-    counts = torch.empty((-(-N // BLOCK), R), dtype=torch.int32, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
+        blocks = ctypes.c_int(0)
+        variant = lib.admission_rounds_plan(N, ctypes.byref(blocks))
+        if variant < 0:
+            raise RuntimeError(f"admission_rounds_plan failed: CUDA error "
+                               f"{-variant}")
+        dst_out = torch.empty_like(dst)
+        struck_out = torch.empty_like(struck)
+        want = torch.empty((rounds, R), **i32)
+        counts = torch.empty((rounds, blocks.value, R), **i32)
+        pref = torch.empty(N, **i32)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admission_count(
-            net.data_ptr(), assign.data_ptr(), eligible.data_ptr(),
-            dst.data_ptr(), struck.data_ptr(), N, R, counts.data_ptr(),
-            stream)
-        if err:
-            raise RuntimeError(f"admission_count launch failed: CUDA error "
-                               f"{err}")
-        admission_round.launches += 1
-        err = lib.admission_admit(
+        err = lib.admission_rounds(
             net.data_ptr(), assign.data_ptr(), eligible.data_ptr(),
             dst.data_ptr(), struck.data_ptr(), remaining.data_ptr(), N, R,
-            counts.data_ptr(), dst_out.data_ptr(), struck_out.data_ptr(),
-            want_total.data_ptr(), stream)
-        if err:
-            raise RuntimeError(f"admission_admit launch failed: CUDA error "
-                               f"{err}")
-        admission_round.launches += 1
-    return dst_out, struck_out, want_total
+            rounds, variant, blocks.value, counts.data_ptr(),
+            dst_out.data_ptr(), struck_out.data_ptr(), pref.data_ptr(),
+            want.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"admission_rounds cooperative launch failed: "
+                           f"CUDA error {err}")
+    admission_rounds.launches += 1
+    return dst_out, struck_out, want
 
 
-admission_round.launches = 0
+admission_rounds.launches = 0
+
+
+def admission_round(net, assign, eligible, dst, struck, remaining):
+    """One capacity-admission preference round: the one-round contract of
+    the Pallas kernel, `admission_rounds` with ``rounds=1`` (one launch,
+    counted by `admission_rounds.launches`). Returns ``(dst', struck',
+    want_total)``; ``want_total`` (R,) int32 closes the caller's counters
+    (admitted = min(want_total, remaining))."""
+    dst, struck, want = admission_rounds(net, assign, eligible, dst, struck,
+                                         remaining, 1)
+    return dst, struck, want[0]

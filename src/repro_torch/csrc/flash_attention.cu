@@ -537,36 +537,10 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap mq,
   }
 }
 
-// cuTensorMapEncodeTiled, fetched through the CUDA runtime so that the
-// library needs no link against libcuda.
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                  void*, const cuuint64_t*, const cuuint64_t*,
-                                  const cuuint32_t*, const cuuint32_t*,
-                                  CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                              cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(p);
-  }
-  return fn;
-}
-
 // A (B, S, H, Dh) bf16 tensor cut into boxes of 64 rows x 64 columns of one
 // head, 128-byte swizzled; rows past S read as zeros.
 int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int Dh) {
-  EncodeTiledFn fn = encode_tiled();
+  hopper::EncodeTiledFn fn = hopper::encode_tiled();
   if (fn == nullptr) return -2;
   const cuuint64_t dims[4] = {(cuuint64_t)Dh, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)Dh * 2, (cuuint64_t)H * Dh * 2,

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // cp.async, ldmatrix and mma.sync (m16n8k16, bf16 operands, f32
 // accumulators), bf16 hi + lo splits of f32 values, mbarriers, TMA tile
-// loads and wgmma (m64n64k16) with shared-memory descriptors.
+// loads (with the host's tensor-map encoder) and wgmma (m64n64k16) with
+// shared-memory descriptors.
 //
 // Fragment layouts of mma.sync.m16n8k16 (g = lane / 4, t = lane % 4; each
 // register holds two bf16 of consecutive k, or two f32 of consecutive n):
@@ -156,6 +157,44 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // --- TMA -------------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, fetched through the CUDA runtime so that a library
+// needs no link against libcuda. Host code; nullptr if it cannot be found.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(p);
+  }
+  return fn;
+}
+
+// One 3-d box of `map` at coordinates (c0 innermost .. c2) into shared
+// memory; completion counts `box bytes` on `bar`.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
 
 // One 4-d box of `map` at coordinates (c0 innermost .. c3) into shared
 // memory; completion counts `box bytes` on `bar`.

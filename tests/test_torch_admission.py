@@ -1,12 +1,15 @@
-"""The admission round: the port's plain version against the Pallas kernel.
+"""The admission rounds: the port's plain versions against the Pallas kernel.
 
 `admission_round_torch` must equal the reference's Pallas
 `admission_round` (interpret mode, float64) exactly: (dst', struck',
 want_total) are integers, and one flipped admission would change the
-plan. The inputs force the hard cases: nets rounded to quarters (ties
-between regions), random strike masks, partly placed `dst`, and so few
-free slots that every region is contended. `block_n` 7 runs the Pallas
-grid over many ragged blocks, 8192 over one.
+plan. `admission_rounds_torch`, the plain version of the port's
+one-launch epoch, must equal that many successive Pallas rounds with the
+planner's update of the free slots between them. The inputs force the
+hard cases: nets rounded to quarters (ties between regions), random
+strike masks, partly placed `dst`, and so few free slots that every
+region is contended. `block_n` 7 runs the Pallas grid over many ragged
+blocks, 8192 over one.
 """
 import numpy as np
 import pytest
@@ -18,8 +21,9 @@ pytest.importorskip("jax.experimental.pallas")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.cluster.placement_pallas import admission_round as pallas_round  # noqa: E402
-from repro_torch.cluster.placement_kernel import (admission_round,  # noqa: E402
-                                                  admission_round_torch)
+from repro_torch.cluster.placement_kernel import (  # noqa: E402
+    admission_round, admission_round_torch, admission_rounds,
+    admission_rounds_torch)
 
 
 def _inputs(N, R, seed):
@@ -55,13 +59,40 @@ def test_plain_round_equals_pallas_kernel(N, R, block_n):
     assert (ref[2] > arrays[5]).any()
 
 
+@pytest.mark.parametrize("N,R,rounds", [(250, 3, 3), (1003, 5, 5),
+                                         (777, 3, 1), (61, 2, 2)])
+def test_plain_rounds_equal_successive_pallas_rounds(N, R, rounds):
+    arrays = _inputs(N, R, seed=N + R + rounds)
+    net, assign, elig, dst, struck, remaining = arrays
+    wants, contended = [], False
+    with jax.enable_x64(True):
+        for _ in range(rounds):
+            dst, struck, want = (np.asarray(x) for x in pallas_round(
+                *(jnp.asarray(a) for a in (net, assign, elig, dst, struck,
+                                           remaining)),
+                block_n=64, interpret=True))
+            contended |= bool((want > remaining).any())
+            remaining = remaining - np.minimum(want, remaining)
+            wants.append(want)
+    got = admission_rounds_torch(*_torch_args(arrays), rounds)
+    for name, r, g in zip(("dst", "struck", "want"),
+                          (dst, struck, np.stack(wants)), got):
+        assert g.dtype == torch.int32, name
+        assert np.array_equal(r, g.numpy()), name
+    assert contended, "no round was contended"
+
+
 def test_wrapper_runs_the_plain_version_on_cpu_without_counting():
     args = _torch_args(_inputs(300, 3, seed=4))
-    before = admission_round.launches
+    before = admission_rounds.launches
     got = admission_round(*args)
     want = admission_round_torch(*args)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    assert admission_round.launches == before
+    got = admission_rounds(*args, 3)
+    want = admission_rounds_torch(*args, 3)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert tuple(got[2].shape) == (3, 3)
+    assert admission_rounds.launches == before
 
 
 @pytest.mark.parametrize("bad", ["net_dtype", "eligible_dtype", "shape",
@@ -82,6 +113,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         net = net.to("meta")
     with pytest.raises(ValueError):
         admission_round(net, assign, elig, dst, struck, rem)
+    with pytest.raises(ValueError):
+        admission_rounds(net, assign, elig, dst, struck, rem, 3)
 
 
 def test_kernel_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):

@@ -18,11 +18,16 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# 400,000 and 600,000 need more 1,024-container tiles than the card holds
+# blocks at once (an H100 holds 132), so each block walks several: up to 4
+# with their state in registers, more with it in global memory
 @pytest.mark.parametrize("N,R", [(1, 2), (1023, 3), (1025, 3), (12_345, 5),
-                                 (100_000, 31)])
+                                 (100_000, 31), (400_000, 3), (600_000, 3)])
 def test_admission_kernel_equals_plain_version(cuda, N, R):
     from repro_torch.cluster.placement_kernel import (admission_round,
-                                                      admission_round_torch)
+                                                      admission_round_torch,
+                                                      admission_rounds,
+                                                      admission_rounds_torch)
     rng = np.random.default_rng(N + R)
     i32 = dict(dtype=torch.int32, device=cuda)
     args = (torch.as_tensor(np.round(rng.normal(size=(N, R)) * 4) / 4,
@@ -33,11 +38,16 @@ def test_admission_kernel_equals_plain_version(cuda, N, R):
                                      rng.integers(0, R, N), -1), **i32),
             torch.as_tensor(rng.integers(0, 1 << min(R, 30), N), **i32),
             torch.as_tensor(rng.integers(0, max(2, N // (4 * R)), R), **i32))
-    before = admission_round.launches
+    before = admission_rounds.launches
     got = admission_round(*args)
+    assert admission_rounds.launches == before + 1
     want = admission_round_torch(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    got = admission_rounds(*args, R)
+    assert admission_rounds.launches == before + 2
+    want = admission_rounds_torch(*args, R)
     torch.cuda.synchronize()
-    assert admission_round.launches == before + 2
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 
@@ -224,17 +234,20 @@ def test_ssd_kernel_does_not_overflow_above_the_diagonal(cuda):
     torch.testing.assert_close(h, h_want, atol=5e-3, rtol=5e-3)
 
 
-# B, S, W: tests/test_kernels.py's RGLRU_CASES, a ragged tail, the
-# serving shape at batch 1
+# B, S, W: tests/test_kernels.py's RGLRU_CASES, a ragged tail (W 100:
+# the column route), ragged tiles of the ring route (S 100 and W 136 not
+# multiples of 64), the serving shape at batch 1
 RGLRU_CASES = [(2, 64, 128), (1, 128, 256), (3, 32, 512), (2, 37, 100),
-               (1, 2048, 4096)]
+               (2, 100, 136), (1, 2048, 4096)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
 def test_rglru_kernel_equals_plain_version(cuda, case, dtype):
+    """Bit-equal to the plain version on the ring route; within the
+    kernel tests' bars on the column route."""
     from repro_torch.kernels.rglru_scan import (rglru_gated, rglru_scan,
-                                                rglru_scan_torch)
+                                                rglru_scan_torch, route)
     from repro_torch.kernels.ref import rglru_gates
     B, S, W = case
     dt = getattr(torch, dtype)
@@ -245,13 +258,22 @@ def test_rglru_kernel_equals_plain_version(cuda, case, dtype):
     h0 = torch.as_tensor(rng.normal(size=(B, W)), dtype=torch.float32,
                          device=cuda)
     a, gx = rglru_gates(x, r, i, lam)
+    a = a.to(dt)
+    path = route(a, gx)
+    assert path == ("column" if W % 8 else "ring")
     before = rglru_scan.launches
-    y, h = rglru_scan(a.to(dt), gx, h0)
-    y_want, h_want = rglru_scan_torch(a.to(dt), gx, h0)
+    routes = dict(rglru_scan.route_launches)
+    y, h = rglru_scan(a, gx, h0)
+    y_want, h_want = rglru_scan_torch(a, gx, h0)
     yg, hg = rglru_gated(x, r, i, lam, h0=h0)
     torch.cuda.synchronize()
     assert rglru_scan.launches == before + 2
+    assert rglru_scan.route_launches[path] == routes[path] + 2
     assert y.dtype == torch.float32 and yg.dtype == dt
+    if path == "ring":
+        assert torch.equal(y, y_want) and torch.equal(h, h_want)
+        assert torch.equal(yg, y_want.to(dt)) and torch.equal(hg, h_want)
+        return
     tol, htol = (1e-5, 1e-4) if dtype == "float32" else (3e-2, 1e-2)
     torch.testing.assert_close(y, y_want, atol=tol, rtol=tol)
     torch.testing.assert_close(h, h_want, atol=htol, rtol=htol)

@@ -9,6 +9,7 @@ in interpret mode.
 """
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -46,22 +47,25 @@ def test_plan_torch_equals_plan_jax(jax_reference, contended, monkeypatch,
     placement_jax, _ = jax_reference
     demand, cap = contended
     ref_eng, eng = engines(demand.shape[1], capacity=cap)
-    rounds = []
-    real = port_placement.admission_round
+    calls, contended = [], []
+    real = port_placement.admission_rounds
 
-    def spy(net, assign, eligible, dst, struck, remaining):
-        out = real(net, assign, eligible, dst, struck, remaining)
-        rounds.append(bool((out[2] > remaining).any()))
+    def spy(net, assign, eligible, dst, struck, remaining, rounds):
+        out = real(net, assign, eligible, dst, struck, remaining, rounds)
+        calls.append(rounds)
+        for want in out[2]:                     # each round's wanters
+            contended.append(bool((want > remaining).any()))
+            remaining = remaining - torch.minimum(want, remaining)
         return out
 
-    monkeypatch.setattr(port_placement, "admission_round", spy)
+    monkeypatch.setattr(port_placement, "admission_rounds", spy)
     ref = placement_jax.plan_jax(ref_eng, demand, admission_impl=impl,
                                  block_n=block_n)
     got = plan_torch(eng, demand, device="cpu")
     _assert_plans_equal(ref, got)
     T, R = demand.shape[0], eng.n_regions
-    assert len(rounds) == R * T                 # a fixed R rounds per epoch
-    assert any(rounds), "no admission round was contended"
+    assert calls == [R] * T                     # one call of R rounds an epoch
+    assert any(contended), "no admission round was contended"
     assert int((got.occupancy() > cap).sum()) == 0
     assert got.migrations.sum() > 0
 

@@ -17,8 +17,8 @@ from repro.kernels.rglru_scan import rglru_pallas  # noqa: E402
 from repro.kernels.rglru_scan import rglru_scan_pallas  # noqa: E402
 
 from repro_torch.kernels import ops, ref  # noqa: E402
-from repro_torch.kernels.rglru_scan import (rglru_gated,  # noqa: E402
-                                            rglru_scan, rglru_scan_torch)
+from repro_torch.kernels.rglru_scan import (  # noqa: E402
+    ROUTES, rglru_gated, rglru_scan, rglru_scan_torch, route)
 
 # tests/test_kernels.py's RGLRU_CASES: B, S, W
 RGLRU_CASES = [(2, 64, 128), (1, 128, 256), (3, 32, 512)]
@@ -146,3 +146,28 @@ def test_rglru_scan_checks_its_inputs():
         rglru_scan(a, a.to(torch.bfloat16), torch.zeros(2, 8))
     with pytest.raises(ValueError, match="h0 must be"):
         rglru_scan(a, a, torch.zeros(2, 4))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_table_chooses_the_kernel_by_width_and_alignment(dtype):
+    """The card's kernel is chosen from `ROUTES` without launching: the TMA
+    ring needs W a multiple of 8 and 16-byte aligned a and gx."""
+    def tensors(W, offset=0, gx_offset=0):
+        n = 2 * 4 * W
+        return (torch.zeros(n + offset, dtype=dtype)[offset:].view(2, 4, W),
+                torch.zeros(n + gx_offset)[gx_offset:].view(2, 4, W))
+
+    assert set(ROUTES.values()) == {"ring", "column"}
+    assert route(*tensors(4096)) == "ring"               # the serving width
+    assert route(*tensors(136)) == "ring"
+    assert route(*tensors(100)) == "column"              # RGLRU_CASES' ragged W
+    a, gx = tensors(8, offset=1)                         # a off 16 B
+    assert a.data_ptr() % 16 != 0 and route(a, gx) == "column"
+    assert route(*tensors(8, gx_offset=2)) == "column"   # gx off 16 B
+    before = dict(rglru_scan.route_launches)
+    y, _ = rglru_scan(a, gx, torch.zeros(2, 8))
+    assert rglru_scan.route_launches == before           # CPU: the plain version
+    assert y.shape == (2, 4, 8)
+    for unlisted in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="no kernel"):
+            route(torch.zeros(2, 4, 8, dtype=unlisted), gx)
