@@ -44,6 +44,28 @@ raising on failure so the run exits non-zero:
      (N = 1,000,000 containers), 288 five-minute epochs, regions
      PL/NL/CAISO at capacity 60,000 each, CarbonContainerPolicy("energy"),
      through `SweepSpec(...).run()`;
+  5b. device arithmetic: `repro_torch.devmath`'s divide and fixed-order
+     sums bit-equal on the card and the CPU (beside them, how often
+     ``x / 3600.0`` and `torch.cumsum` differ), and the greedies' budget
+     cut (`budget_admits`) NumPy's at 400,000 entries, for a budget
+     within rounding of a prefix sum and one far from all; then the
+     layered cross-check, card against CPU, at 2,000 traces x 10
+     targets, one day, in jax_sweep_scale's layer and fault settings
+     (`repro_torch.launch.sweep_scale`): the faulted plan, the traffic
+     replicas with and without a carbon budget, the elastic levels epoch
+     by epoch under a budget that refuses some levels (also against the
+     NumPy layer's, whose cut is ``np.cumsum``'s), and the rows (a)
+     with all four layers and the fault plan, (b) without elasticity, so
+     that the traffic and energy steps run folded into the fleet scan.
+     Rows within 1e-6; plans, migrations, failed migrations, replica and
+     level counts exactly;
+  5c. the layered sweep at full width: jax_sweep_scale itself, phase 5's
+     fleet with traffic (1,000,000 users), energy (an outage and a
+     shock), elasticity (a shaped budget of 2.5 g per trace per epoch)
+     and the fault plan; T admission launches, no over-capacity
+     region-epoch, no energy cap or state-of-charge violation; device
+     time (torch.profiler) and host time by stage (cProfile); then the
+     elastic levels at 100,000 traces against the NumPy layer's;
   6. serving cross-checks at the published widths in float32, the same
      weights on the card and on the CPU, batch 2, then 8 decode steps fed
      the CPU's greedy tokens, every step's logits within 1e-3:
@@ -57,9 +79,9 @@ raising on failure so the run exits non-zero:
      2,048 random tokens, then a torch.profiler breakdown of one prefill
      and of one decode step.
 
-Phases 5 and 7 are the main paths: every kernel's launch counter is set
-to 0 just before each path and read just after; each path must have
-launched exactly its kernels (T admission launches in the sweep, one
+Phases 5, 5c and 7 are the main paths: every kernel's launch counter is
+set to 0 just before each path and read just after; each path must have
+launched exactly its kernels (T admission launches in each sweep, one
 per epoch; per prefill 32 flash launches for phi4-mini, 64 SSD launches
 for Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma) and no
 others, every flash launch on the wgmma route, every SSD launch on the
@@ -84,6 +106,8 @@ OUT = ROOT / "chiprun_out"
 SEED = 2
 REGIONS = ("PL", "NL", "CAISO")
 N_TARGETS = 10
+FULL_TRACES = 100_000           # x N_TARGETS = 1,000,000 containers
+LAYERED_CROSS_TRACES = 2_000    # the layered card-vs-CPU check
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW_TOKENS = 4, 2048, 32
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores, same
@@ -134,6 +158,38 @@ def _device_profile(fn):
     top = [{"name": k[2][:120], "device_s": k[0] / 1e6, "count": k[1]}
            for k in kernels[:12]]
     return wall, dev_s, top
+
+
+# the sweep's stages, by function name, for the host-time breakdown
+HOST_STAGES = ("sweep_population_torch", "_prepare_sweep_inputs",
+               "plan_torch", "migration_failure_mask", "observe_intensity",
+               "request_matrix", "simulate_traffic", "_prepare_energy",
+               "simulate_supply", "simulate_elastic_torch", "forecast_series",
+               "_elastic_budget_series", "_fleet_scan", "run",
+               "_aggregate_sweep_rows")
+
+
+def _host_breakdown(fn):
+    """Run `fn` under cProfile; returns (wall_s, {module.function:
+    cumulative s}) for the port's functions named in HOST_STAGES. Device
+    work is asynchronous, so a stage's time includes the waits for the
+    card at its host copies."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    out = {}
+    for (path, _, name), row in pstats.Stats(prof).stats.items():
+        if "repro_torch" in path and name in HOST_STAGES:
+            key = f"{Path(path).stem}.{name}"
+            out[key] = out.get(key, 0.0) + row[3]
+    return wall, dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def _margin(got, want, tol):
@@ -522,30 +578,6 @@ def rglru_phase(dev):
     return record
 
 
-def _engine(n_traces, days=1):
-    from repro_torch.carbon.intensity import TraceProvider
-    from repro_torch.cluster.placement import PlacementConfig, PlacementEngine
-    from repro_torch.cluster.slices import paper_family
-    provs = [TraceProvider.for_region(r, hours=24 * days, seed=1)
-             for r in REGIONS]
-    cap = int(np.ceil(0.6 * n_traces))
-    return cap, PlacementEngine(
-        paper_family(), provs, region_names=REGIONS,
-        config=PlacementConfig(capacity=cap, min_dwell=6, hysteresis=0.10))
-
-
-def _spec(demand, eng, device):
-    from repro_torch.cluster.slices import paper_family
-    from repro_torch.core.policy import CarbonContainerPolicy
-    from repro_torch.core.spec import SweepSpec
-    return SweepSpec(
-        policies={"carbon_containers":
-                  lambda: CarbonContainerPolicy(variant="energy")},
-        family=paper_family(), traces=demand,
-        targets=list(np.linspace(20.0, 80.0, N_TARGETS)),
-        placement=eng, device=device)
-
-
 def _check_rows(res, n_rows):
     if len(res.rows) != n_rows:
         raise AssertionError(f"{len(res.rows)} rows, expected {n_rows}")
@@ -556,9 +588,10 @@ def _check_rows(res, n_rows):
 
 def cross_check(dev):
     from repro_torch.cluster.placement import plan_torch
+    from repro_torch.launch.sweep_scale import engine, spec
     from repro_torch.workload.azure_like import sample_population_matrix
     demand = sample_population_matrix(5_000, days=1, seed=SEED)
-    _, eng = _engine(5_000)
+    _, eng = engine(5_000)
     p_gpu = plan_torch(eng, demand, device=dev)
     p_cpu = plan_torch(eng, demand, device="cpu")
     if not (np.array_equal(p_gpu.assign, p_cpu.assign)
@@ -566,8 +599,8 @@ def cross_check(dev):
         raise AssertionError("card and CPU plans differ")
     plan_err = max(float(np.abs(p_gpu.overhead_g - p_cpu.overhead_g).max()),
                    float(np.abs(p_gpu.downtime_s - p_cpu.downtime_s).max()))
-    r_gpu = _spec(demand, eng, dev).run()
-    r_cpu = _spec(demand, eng, "cpu").run()
+    r_gpu = spec(demand, eng, dev, layered=False).run()
+    r_cpu = spec(demand, eng, "cpu", layered=False).run()
     _check_rows(r_gpu, N_TARGETS)
     parity = r_gpu.parity(r_cpu)
     if parity > 1e-9 or plan_err > 1e-9:
@@ -581,14 +614,15 @@ def cross_check(dev):
 
 def full_width(dev):
     from repro_torch.cluster.placement import plan_torch
+    from repro_torch.launch.sweep_scale import engine, spec
     from repro_torch.workload.azure_like import sample_population_matrix
-    n_traces = 100_000
+    n_traces = FULL_TRACES
     t0 = time.perf_counter()
     demand = sample_population_matrix(n_traces, days=1, seed=SEED)
     gen_s = time.perf_counter() - t0
     T = demand.shape[0]
     N = n_traces * N_TARGETS
-    cap, eng = _engine(n_traces)
+    cap, eng = engine(n_traces)
     R = eng.n_regions
 
     torch.cuda.synchronize()
@@ -599,12 +633,12 @@ def full_width(dev):
     if over:
         raise AssertionError(f"{over} over-capacity region-epochs")
 
-    spec = _spec(demand, eng, dev)
+    sweep = spec(demand, eng, dev, layered=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     _zero_counts()
     t0 = time.perf_counter()
-    res = spec.run()
+    res = sweep.run()
     torch.cuda.synchronize()
     sweep_s = time.perf_counter() - t0
     launches = _read_counts()
@@ -620,7 +654,7 @@ def full_width(dev):
     # where the time goes: the plan alone, then the whole sweep, profiled
     # (after the counted run, so profiling costs it nothing)
     plan_prof = _device_profile(lambda: plan_torch(eng, demand, device=dev))
-    sweep_prof = _device_profile(spec.run)
+    sweep_prof = _device_profile(sweep.run)
     profile = {"plan": dict(zip(("wall_s", "device_s", "top"), plan_prof)),
                "sweep": dict(zip(("wall_s", "device_s", "top"),
                                  sweep_prof))}
@@ -634,6 +668,338 @@ def full_width(dev):
             "over_capacity_epochs": over, "launches": launches,
             "plan_migrations": int(plan.migrations.sum()),
             "rows": res.rows, "profile": profile}
+
+
+# row keys held exactly card against CPU: counts, and counts turned means
+LAYERED_EXACT = ("migrations_mean", "placement_migrations_mean",
+                 "fault_failed_migrations_mean", "fault_max_age",
+                 "elastic_level_epochs", "traffic_replica_epochs",
+                 "energy_outage_epochs")
+TRAFFIC_BUDGET_G = 16.0     # binds at 2,000 traces: about 3 in 4 replicas
+ELASTIC_CHECK_G = 4.0       # g per trace per epoch: 1.12 levels a container
+#                             against 1.36 uncapped, on the raw demand
+
+
+def _layered_plan(demand, eng, lay, device, timing=None):
+    """The layered sweep's plan on `device`, through the sweep's own
+    prologue: grid shocks on the true feed, the degrade ladder, the
+    seeded migration-failure mask. With `timing`, ``timing["plan_s"]``
+    gets the planner's wall time (ended by its host copy)."""
+    from repro_torch.cluster.placement import plan_torch
+    from repro_torch.core.fleet import _prepare_sweep_inputs
+    from repro_torch.core.simulator import SimConfig
+    cfg = SimConfig(target_rate=0.0)
+
+    def plan_fn(e, d, flt):
+        if timing is not None and str(device) != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = plan_torch(e, d, state_gb=cfg.state_gb, faults=flt,
+                          device=device)
+        if timing is not None:
+            timing["plan_s"] = time.perf_counter() - t0
+        return plan
+    return _prepare_sweep_inputs(
+        demand, None, list(np.linspace(20.0, 80.0, N_TARGETS)), cfg, 1.0,
+        eng, plan_fn, energy=lay["energy"], faults=lay["faults"])[3]
+
+
+def _rows_exact(a, b, where):
+    """Card and CPU rows: the same keys, the counts equal."""
+    for x, y in zip(a, b):
+        if set(x) != set(y):
+            raise AssertionError(f"{where}: row keys differ: "
+                                 f"{sorted(set(x) ^ set(y))}")
+        for k in LAYERED_EXACT + tuple(k for k in x
+                                        if k.endswith("_violations")):
+            if k in x and x[k] != y[k]:
+                raise AssertionError(f"{where}: {k} {x[k]} on the card, "
+                                     f"{y[k]} on the CPU")
+
+
+def device_arithmetic(dev):
+    """What the sweep's exact counts rest on: on 1,000,000 random f64
+    values, `devmath.divide`, `ordered_cumsum` and `ordered_sum` give the
+    same bits on the card as on the CPU; beside them, how many values of
+    the two PyTorch operations they replace (``x / 3600.0``,
+    `torch.cumsum`) differ between the card and the CPU. Then the
+    greedies' budget cut at the layered sweep's 400,000 entries
+    (100,000 traces x 4 levels): `budget_admits` on the card decides as
+    NumPy's ``np.cumsum`` does, for a budget between the block order's
+    prefix sum and NumPy's (refolded once) and for one far from both."""
+    from repro_torch import devmath
+    from repro_torch.devmath import (budget_admits, divide, ordered_cumsum,
+                                     ordered_sum)
+    rng = np.random.default_rng(SEED)
+    x = torch.as_tensor(rng.random(1_000_000) * 1000.0)
+    xg = x.to(dev)
+
+    def differ(f):
+        return int((f(x) != f(xg).cpu()).sum())
+    out = {"n": x.numel(),
+           "divide_differ": differ(lambda t: divide(t, 3600.0)),
+           "ordered_cumsum_differ": differ(ordered_cumsum),
+           "ordered_sum_differ": differ(lambda t: ordered_sum(t)[None]),
+           "host_scalar_div_differ": differ(lambda t: t / 3600.0),
+           "torch_cumsum_differ": differ(lambda t: torch.cumsum(t, 0)),
+           "torch_sum_differ": differ(lambda t: t.sum()[None])}
+    bad = {k: v for k, v in out.items()
+           if k in ("divide_differ", "ordered_cumsum_differ",
+                    "ordered_sum_differ") and v}
+    if bad:
+        raise AssertionError(f"card and CPU arithmetic differ: {bad}")
+
+    L = 4 * FULL_TRACES
+    mand = np.where(rng.random(L) < 0.3, rng.random(L), 0.0)
+    gs = rng.random(L) * rng.choice([1e-3, 1.0, 1e2], L)
+    seq = np.cumsum(mand)[-1] + np.cumsum(gs)
+    m_t, g_t = torch.as_tensor(mand), torch.as_tensor(gs)
+    blk = (ordered_sum(m_t) + ordered_cumsum(g_t)).numpy()
+    split = np.flatnonzero(seq != blk)
+    k = split[len(split) // 2]
+    args = (m_t.to(dev), g_t.to(dev))
+    live = torch.ones(L, dtype=torch.bool, device=dev)
+    cut = {"n": L, "block_order_differs": int(split.size)}
+    for name, budget, refolds in (
+            ("near", min(seq[k], blk[k]), 1),
+            ("far", _between(seq, gs), 0)):
+        before = devmath.refolds
+        got = budget_admits(*args, budget, live).cpu().numpy()
+        if devmath.refolds - before != refolds:
+            raise AssertionError(f"budget cut {name}: "
+                                 f"{devmath.refolds - before} refolds")
+        if not np.array_equal(got, seq <= budget):
+            raise AssertionError(f"budget cut {name}: the card's cut is "
+                                 f"not NumPy's")
+        cut[f"{name}_ms"] = _median_ms(
+            lambda b=budget: budget_admits(*args, b, live), reps=5, warmup=1)
+    out["budget_cut"] = cut
+    return out
+
+
+def _between(seq, gs):
+    """A budget halfway between two prefix sums at least 50 apart, past
+    the middle: far from every prefix sum in either order."""
+    j = len(gs) // 2 + int(np.argmax(gs[len(gs) // 2 + 1:] > 50.0))
+    return 0.5 * (seq[j] + seq[j + 1])
+
+
+def _elastic_vs_numpy(demand, plan, ela, dev):
+    """The card's elastic levels against the NumPy layer's, whose budget
+    cut is ``np.cumsum``'s, on the plan's carbon gathered dense: a cut
+    sums n_traces x K entries, past one fixed-order block. The budget
+    must lift some containers above their floor level."""
+    from repro_torch import devmath
+    from repro_torch.core.elasticity import simulate_elastic
+    from repro_torch.core.elasticity_torch import simulate_elastic_torch
+    T = demand.shape[0]
+    dense = plan.region_intensity[np.arange(T)[:, None], plan.assign]
+    t0 = time.perf_counter()
+    host = simulate_elastic(demand, dense, ela, 300.0)
+    numpy_s = time.perf_counter() - t0
+    before = devmath.refolds
+    card = simulate_elastic_torch(demand, dense, ela, 300.0, record=True,
+                                  device=dev)
+    if not np.array_equal(card.levels, host.levels):
+        raise AssertionError(
+            f"elastic levels differ from the NumPy layer's in "
+            f"{int((card.levels != host.levels).sum())} container-epochs")
+    if not host.levels.size < host.levels.sum():
+        raise AssertionError("the elastic budget admits no optional level")
+    return {"entries_per_cut": demand.shape[1] * ela.k_levels,
+            "level_epochs": int(host.levels.sum()),
+            "refolds": devmath.refolds - before, "numpy_s": numpy_s}
+
+
+def layered_cross_check(dev):
+    """Card against CPU with the layers on, at 2,000 traces x 10 targets,
+    one day, in jax_sweep_scale's settings (its 1,000,000 users, a budget
+    of 2.5 g per trace per epoch, capacity 0.6 of the traces): the plan,
+    the traffic replicas (with and without a carbon budget), the elastic
+    levels (also against the NumPy layer's on dense carbon) and the
+    sweep rows, (a) with all four layers and the fault plan and (b)
+    without elasticity, so that the traffic and energy steps
+    run folded into the fleet scan on the card. Rows within 1e-6; plans,
+    migrations, failed migrations, replica and level counts exactly."""
+    import dataclasses
+
+    from repro_torch.core.elasticity_torch import simulate_elastic_torch
+    from repro_torch.launch.sweep_scale import engine, layers, spec
+    from repro_torch.traffic import request_matrix, simulate_traffic
+    from repro_torch.traffic.sim_torch import simulate_traffic_torch
+    from repro_torch.workload.azure_like import sample_population_matrix
+    n = LAYERED_CROSS_TRACES
+    demand = sample_population_matrix(n, days=1, seed=SEED)
+    T = demand.shape[0]
+    cap, eng = engine(n)
+    lay = layers(n)
+    p_gpu, p_cpu = (_layered_plan(demand, eng, lay, d) for d in (dev, "cpu"))
+    for f in ("assign", "migrations", "failed_migrations"):
+        if not np.array_equal(getattr(p_gpu, f), getattr(p_cpu, f)):
+            raise AssertionError(f"card and CPU plans differ in {f}")
+    plan_err = max(float(np.abs(p_gpu.overhead_g - p_cpu.overhead_g).max()),
+                   float(np.abs(p_gpu.downtime_s - p_cpu.downtime_s).max()))
+    over = int((p_gpu.occupancy() > cap).sum())
+    if plan_err > 1e-9 or over:
+        raise AssertionError(f"plan: err {plan_err}, {over} over capacity")
+    out = {"n_traces": n, "n_targets": N_TARGETS, "plan_err": plan_err,
+           "plan_migrations": int(p_gpu.migrations.sum()),
+           "plan_failed_migrations": int(p_gpu.failed_migrations.sum())}
+
+    # replica counts: the sweep's requests routed on the observed feed
+    arr = request_matrix(lay["traffic"].population, T, 300.0)
+    out["traffic"] = {}
+    for budget in (None, TRAFFIC_BUDGET_G):
+        cfg = dataclasses.replace(lay["traffic"], replicas=dataclasses.replace(
+            lay["traffic"].replicas, budget_g_per_epoch=budget))
+        host = simulate_traffic(arr.requests, p_cpu.region_intensity, cfg)
+        runs = [simulate_traffic_torch(arr.requests, p_cpu.region_intensity,
+                                       cfg, device=d) for d in (dev, "cpu")]
+        if not all(np.array_equal(r.replicas, host.replicas) for r in runs):
+            raise AssertionError(f"replica counts differ (budget {budget})")
+        err = max(float(np.abs(getattr(runs[0], f) - getattr(r, f)).max())
+                  / max(float(np.abs(getattr(r, f)).max()), 1.0)
+                  for r in (runs[1], host)
+                  for f in ("served", "emissions_g", "routed"))
+        if err > 1e-6:
+            raise AssertionError(f"traffic card vs CPU/host: {err}")
+        out["traffic"][str(budget)] = {
+            "replica_epochs": int(host.replicas.sum()), "max_rel_err": err}
+    if not (out["traffic"][str(TRAFFIC_BUDGET_G)]["replica_epochs"]
+            < out["traffic"]["None"]["replica_epochs"]):
+        raise AssertionError("the traffic budget does not bind")
+
+    # elastic levels, epoch by epoch: the compact demand on the plan's
+    # indexed carbon, under a shaped budget that admits some optional
+    # levels and refuses others
+    ela = dataclasses.replace(lay["elasticity"],
+                              budget_g_per_epoch=ELASTIC_CHECK_G * n)
+    runs = [simulate_elastic_torch(demand, (p_cpu.region_intensity,
+                                            p_cpu.assign), cfg, 300.0,
+                                   record=True, device=d)
+            for cfg, d in ((ela, dev), (ela, "cpu"),
+                           (dataclasses.replace(ela, budget_g_per_epoch=None,
+                                                shape_budget=False), "cpu"))]
+    if not np.array_equal(runs[0].levels, runs[1].levels):
+        raise AssertionError("card and CPU elastic levels differ")
+    s_gpu, s_cpu = runs[0].summary(), runs[1].summary()
+    err = max(abs(s_gpu[k] - s_cpu[k]) / max(abs(s_cpu[k]), 1.0)
+              for k in s_cpu)
+    if err > 1e-6 or s_gpu["elastic_cap_violations"]:
+        raise AssertionError(f"elastic summary card vs CPU {err}, "
+                             f"{s_gpu['elastic_cap_violations']} violations")
+    levels = [int(r.levels.sum()) for r in runs]
+    if not n * T < levels[0] < levels[2]:
+        raise AssertionError(f"the elastic budget is not selective: level-"
+                             f"epochs {levels[0]}, floor {n * T}, uncapped "
+                             f"{levels[2]}")
+    out["elastic"] = {"level_epochs": levels[0], "uncapped": levels[2],
+                      "summary_max_rel_err": err,
+                      "vs_numpy": _elastic_vs_numpy(demand, p_cpu, ela, dev)}
+
+    for name, ela in (("a_all_four", True), ("b_folded_in_scan", False)):
+        r_gpu = spec(demand, eng, dev, elasticity=ela).run()
+        r_cpu = spec(demand, eng, "cpu", elasticity=ela).run()
+        _check_rows(r_gpu, N_TARGETS)
+        _rows_exact(r_gpu, r_cpu, name)
+        parity = r_gpu.parity(r_cpu)
+        if parity > 1e-6:
+            raise AssertionError(f"{name}: card vs CPU rows {parity}")
+        if r_gpu[0]["fault_failed_migrations_mean"] != float(
+                np.mean(p_gpu.failed_migrations)):
+            raise AssertionError(f"{name}: the sweep's plan differs")
+        bad = {k: v for k, v in r_gpu.violations.items()
+               if k != "traffic_slo_violations" and v}
+        if bad:
+            raise AssertionError(f"{name}: violations {bad}")
+        out[name] = {"rows_parity": parity,
+                     "violations": r_gpu.violations,
+                     "row0": {k: v for k, v in r_gpu[0].items()
+                              if k != "time_on_slice"}}
+    return out
+
+
+def layered_full_width(dev):
+    """`benchmarks/figs.py::jax_sweep_scale` itself: 100,000 traces x 10
+    targets = 1,000,000 containers, 288 epochs, all four layers and the
+    fault plan, nothing cut. Then its elastic levels against the NumPy
+    layer's at 400,000 entries a cut, under the cross-check's budget."""
+    import dataclasses
+
+    from repro_torch import devmath
+    from repro_torch.launch.sweep_scale import engine, layers, spec
+    from repro_torch.workload.azure_like import sample_population_matrix
+    n_traces = FULL_TRACES
+    t0 = time.perf_counter()
+    demand = sample_population_matrix(n_traces, days=1, seed=SEED)
+    gen_s = time.perf_counter() - t0
+    T = demand.shape[0]
+    N = n_traces * N_TARGETS
+    cap, eng = engine(n_traces)
+    timing = {}
+    lay = layers(n_traces)
+    plan = _layered_plan(demand, eng, lay, dev, timing)
+    over = int((plan.occupancy() > cap).sum())
+    if over:
+        raise AssertionError(f"{over} over-capacity region-epochs")
+
+    sweep = spec(demand, eng, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    refolds = devmath.refolds
+    t0 = time.perf_counter()
+    res = sweep.run()
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    launches = _read_counts()
+    refolds = devmath.refolds - refolds
+    want = {name: 0 for name in launches}
+    want["admission_round"] = T                    # one call an epoch
+    if launches != want:
+        raise AssertionError(f"kernel launches {launches} on the layered "
+                             f"sweep, expected {want}")
+    _check_rows(res, N_TARGETS)
+    row = res[0]
+    if (row["placement_migrations_mean"] != float(np.mean(plan.migrations))
+            or row["fault_failed_migrations_mean"]
+            != float(np.mean(plan.failed_migrations))):
+        raise AssertionError("the sweep's plan differs from the one checked")
+    for k in ("energy_cap_violations", "energy_soc_violations"):
+        if row[k]:
+            raise AssertionError(f"{k} = {row[k]}")
+    prof = _device_profile(sweep.run)
+    host_wall, host = _host_breakdown(sweep.run)
+    out = {"n_traces": n_traces, "n_targets": N_TARGETS,
+           "n_containers": N, "n_epochs": T, "n_regions": eng.n_regions,
+           "capacity": cap, "gen_s": gen_s, "plan_s": timing["plan_s"],
+           "sweep_s": sweep_s, "container_epochs_per_s": N * T / sweep_s,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+           "over_capacity_epochs": over, "launches": launches,
+           "budget_refolds": refolds,
+           "elastic_vs_numpy": _elastic_vs_numpy(
+               demand, plan, dataclasses.replace(
+                   lay["elasticity"],
+                   budget_g_per_epoch=ELASTIC_CHECK_G * n_traces), dev),
+           "plan_migrations": int(plan.migrations.sum()),
+           "plan_failed_migrations": int(plan.failed_migrations.sum()),
+           "violations": res.violations,
+           "profile": {"sweep": dict(zip(("wall_s", "device_s", "top"),
+                                         prof))},
+           "host_breakdown": {"wall_s": host_wall, "cumulative_s": host}}
+    for k in ("energy_cap_violations", "energy_soc_violations",
+              "energy_conservation_max_err_w", "elastic_cap_violations",
+              "fault_unmetered_g_mean", "elastic_level_epochs",
+              "elastic_served_frac", "traffic_served",
+              "traffic_replica_epochs", "energy_solar_frac",
+              "energy_unmet_frac", "fault_stale_frac",
+              "fault_failed_migrations_mean", "carbon_rate_mean",
+              "migrations_mean"):
+        out[k] = row[k]
+    if prof[1] is not None:
+        out["sweep_device_s"] = prof[1]
+        out["sweep_device_busy_share"] = prof[1] / sweep_s
+    return out
 
 
 def _kernel_counters():
@@ -934,6 +1300,10 @@ def main():
     cross = cross_check(dev)
     full = full_width(dev)
     _free_device_memory()
+    arithmetic = device_arithmetic(dev)
+    layered_cross = layered_cross_check(dev)
+    layered = layered_full_width(dev)
+    _free_device_memory()
     serve_cross = [serving_cross_check(dev, arch, n, ov)
                    for arch, n, ov in SERVE_CROSS]
     _free_device_memory()
@@ -945,6 +1315,7 @@ def main():
 
     # launches: the count of each kernel over the main paths that run it
     by_path = {"placed_sweep": full["launches"],
+               "placed_sweep_layered": layered["launches"],
                **{r["arch"]: r["launches"] for r in serve}}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
@@ -958,7 +1329,10 @@ def main():
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "total_s": total_s, "kernels": kernels, "cross_check": cross,
-              "full_width": full, "serving_cross_check": serve_cross,
+              "full_width": full, "device_arithmetic": arithmetic,
+              "layered_cross_check": layered_cross,
+              "layered_full_width": layered,
+              "serving_cross_check": serve_cross,
               "bf16_kernels_vs_plain": bf16_check, "serving": serve}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
@@ -973,8 +1347,17 @@ def main():
                          "device_s": prof["device_s"],
                          "top": prof["top"][:6]}
         serve_summary.append(row)
+    layered_summary = {k: v for k, v in layered.items() if k != "profile"}
+    layered_summary["sweep_top"] = layered["profile"]["sweep"]["top"][:6]
     print(json.dumps({"build_s": build_s, "total_s": total_s,
                       "cross_check": cross, "full_width": summary,
+                      "device_arithmetic": arithmetic,
+                      "layered_cross_check": {
+                          k: v for k, v in layered_cross.items()
+                          if k not in ("a_all_four", "b_folded_in_scan")}
+                      | {k: {"rows_parity": layered_cross[k]["rows_parity"]}
+                         for k in ("a_all_four", "b_folded_in_scan")},
+                      "layered_full_width": layered_summary,
                       "serving_cross_check": [
                           {k: v for k, v in r.items() if k != "errs"}
                           for r in serve_cross],

@@ -6,8 +6,13 @@ nothing of the reference: host-side modules it needs are its own copies.
 Entry points take ``device=`` and default to ``"cuda"``; they raise when
 no card is present unless the caller passes ``device="cpu"``.
 
-The slice ported so far is the placed population sweep:
+The placed population sweep is ported with its four layers:
 `repro_torch.core.spec.SweepSpec(...).run()` -> `sweep_population_torch`
--> `plan_torch` (capacity-aware region planner, CUDA admission kernel)
--> `FleetSimulatorTorch` (the epoch loop with the policy deciders).
+-> `plan_torch` (capacity-aware region planner, CUDA admission kernel,
+retry carry of failed migrations) -> `simulate_elastic_torch` (the
+elasticity layer's own epoch loop) -> `FleetSimulatorTorch` (the epoch
+loop with the policy deciders, the traffic and energy steps folded in,
+decisions on the observed carbon feed). `PlacementEngine.run` is the
+placed fleet run. Serving covers the dense, Mamba-2 and RecurrentGemma
+families.
 """

@@ -2,9 +2,10 @@
 
 The port's counterpart of `repro.core.spec`: one value holds the whole
 sweep, `run()` executes it on ``backend="torch"`` on `device`, and the
-result wraps the aggregate rows with `keys`, `col` and `parity`.
-`parity` reads only ``rows`` and ``keys()`` of the other result, so a
-port result compares directly with a reference one.
+result wraps the aggregate rows with the sequence protocol, `keys`,
+`col`, `violations` and `parity`. `parity` reads only ``rows`` and
+``keys()`` of the other result, so a port result compares directly with
+a reference one.
 """
 from __future__ import annotations
 
@@ -27,8 +28,10 @@ class SweepSpec:
     `placement` is either a ready `PlacementEngine`, or a
     `PlacementConfig` to pair with `regions` (per-region carbon providers
     or a (T, R) intensity matrix); the engine is then built on
-    `sim.interval_s`. `traffic`, `elasticity`, `energy` and `faults` are
-    later slices of the port and raise `NotImplementedError` when set.
+    `sim.interval_s`. The layer configs compose as in the reference:
+    traffic, elasticity and energy require placement; `energy` also
+    perturbs the grid the other layers see; `faults` degrades the signal
+    every controller reads.
     """
     policies: dict
     family: SliceFamily
@@ -43,10 +46,10 @@ class SweepSpec:
     placement: object = None            # PlacementEngine | PlacementConfig
     regions: object = None              # with a PlacementConfig placement
     region_names: Optional[Sequence[str]] = None
-    traffic: object = None
-    elasticity: object = None
-    energy: object = None
-    faults: object = None
+    traffic: object = None      # repro_torch.traffic.TrafficConfig
+    elasticity: object = None   # repro_torch.core.elasticity.ElasticityConfig
+    energy: object = None       # repro_torch.energy.EnergyConfig
+    faults: object = None       # repro_torch.robustness.FaultPlan
     device: str = "cuda"
 
     def resolve_placement(self):
@@ -84,18 +87,25 @@ class SweepSpec:
             placement=self.resolve_placement(), traffic=self.traffic,
             elasticity=self.elasticity, energy=self.energy,
             faults=self.faults, device=self.device)
-        return SweepResult(rows=rows, backend=self.backend)
+        return SweepResult(rows=rows, backend=self.backend, spec=self)
 
 
 @dataclass
 class SweepResult:
     """The per-(target, policy) aggregate rows of a sweep behind one
-    shape."""
+    shape. The sequence protocol gives back the rows."""
     rows: list
     backend: str
+    spec: Optional[SweepSpec] = None
 
     def __len__(self):
         return len(self.rows)
+
+    def __iter__(self):
+        return iter(self.rows)
+
+    def __getitem__(self, i):
+        return self.rows[i]
 
     def keys(self) -> list:
         """Numeric metric keys present in every row (sorted)."""
@@ -106,6 +116,13 @@ class SweepResult:
     def col(self, key: str) -> np.ndarray:
         """One metric across the rows, in row order."""
         return np.asarray([float(r[key]) for r in self.rows])
+
+    @property
+    def violations(self) -> dict:
+        """Max over rows of every `*_violations` metric (an empty dict
+        when no layer reported any)."""
+        return {k: float(self.col(k).max())
+                for k in self.keys() if k.endswith("_violations")}
 
     def parity(self, other, keys=None) -> float:
         """Max relative difference vs another run of the same sweep (rows

@@ -1,0 +1,21 @@
+"""Virtual energy supply layer (Ecovisor-style).
+
+`supply` is a host numpy copy of `repro.energy.supply`: a per-region
+energy supply (solar, a battery, the event-perturbed grid) turned into
+two signals the demand side consumes, a per-region *virtual power cap*
+fraction and the *effective* carbon intensity of the delivered mix.
+`supply_torch` runs the same supply step on a device, folded into the
+fleet scan. The reference's scenario matrix (`repro.energy.scenarios`)
+is not ported yet.
+"""
+from repro_torch.energy.supply import (BatteryConfig, EnergyConfig,
+                                       EnergySpec, GridEventConfig,
+                                       SolarConfig, SupplyResult,
+                                       event_matrices, simulate_supply,
+                                       solar_series, supply_step_np)
+
+__all__ = [
+    "BatteryConfig", "EnergyConfig", "EnergySpec", "GridEventConfig",
+    "SolarConfig", "SupplyResult", "event_matrices", "simulate_supply",
+    "solar_series", "supply_step_np",
+]

@@ -1,7 +1,10 @@
 """Tests that need the card: the CUDA admission, flash-attention, SSD and
 RG-LRU kernels against their plain versions (the tensor-core routes at
-the edges of their tiles too), card-vs-CPU plan equality
-and card-vs-CPU serving (SmolLM, Mamba-2, RecurrentGemma). They skip without a GPU. On the
+the edges of their tiles too), card-vs-CPU plan equality, the layered
+sweep card against CPU (`devmath`, the traffic, energy and
+elasticity steps, the faulted plan, the rows with all four layers and
+with traffic and energy folded into the scan) and card-vs-CPU serving
+(SmolLM, Mamba-2, RecurrentGemma). They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
 import numpy as np
@@ -69,6 +72,119 @@ def test_plan_on_card_equals_cpu(cuda):
     assert np.array_equal(a.assign, b.assign)
     assert np.array_equal(a.migrations, b.migrations)
     assert np.allclose(a.overhead_g, b.overhead_g, rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("L", [3, 1024, 1025, 8_000, 400_000])
+def test_devmath_on_card_equals_cpu(cuda, L):
+    """Bit-equal on both devices: quotients by constants, prefix sums and
+    sums in the fixed order."""
+    from repro_torch.devmath import divide, ordered_cumsum, ordered_sum
+    rng = np.random.default_rng(L)
+    x = torch.as_tensor(rng.random((L, 3)) * rng.choice([1e-3, 1.0, 1e4],
+                                                         (L, 3)))
+    assert torch.equal(ordered_cumsum(x[:, 0].to(cuda)).cpu(),
+                       ordered_cumsum(x[:, 0]))
+    assert torch.equal(ordered_sum(x.to(cuda)).cpu(), ordered_sum(x))
+    for c in (3600.0, 1000.0, 0.3, 7.0):
+        assert torch.equal(divide(x.to(cuda), c).cpu(), x / c)
+
+
+@pytest.mark.parametrize("L", [8_000, 400_000])
+def test_budget_cut_on_card_is_numpys(cuda, L):
+    """The greedies' budget cut past one fixed-order block: a budget
+    between the block order's prefix sum and NumPy's left fold is decided
+    as ``np.cumsum`` decides it, on the card as on the CPU."""
+    from repro_torch import devmath
+    from repro_torch.devmath import budget_admits, ordered_cumsum, ordered_sum
+    rng = np.random.default_rng(L)
+    mand = np.where(rng.random(L) < 0.3, rng.random(L), 0.0)
+    gs = rng.random(L) * rng.choice([1e-3, 1.0, 1e2], L)
+    seq = np.cumsum(mand)[-1] + np.cumsum(gs)
+    m_t, g_t = torch.as_tensor(mand), torch.as_tensor(gs)
+    blk = (ordered_sum(m_t) + ordered_cumsum(g_t)).numpy()
+    split = np.flatnonzero(seq != blk)
+    k = split[len(split) // 3]
+    budget = min(seq[k], blk[k])
+    live = rng.random(L) < 0.9
+    live[k] = True
+    live = torch.as_tensor(live)
+    before = devmath.refolds
+    got = budget_admits(m_t.to(cuda), g_t.to(cuda), budget, live.to(cuda))
+    assert devmath.refolds == before + 1
+    assert torch.equal(got.cpu(), budget_admits(m_t, g_t, budget, live))
+    assert np.array_equal(got.cpu().numpy(), live.numpy() & (seq <= budget))
+
+
+def test_layer_steps_on_card_equal_cpu(cuda):
+    """The faulted plan, the traffic replicas under a budget, the supply
+    ledger and the elastic levels: counts equal, floats within 1e-12."""
+    import dataclasses
+
+    from repro_torch.cluster.placement import plan_torch
+    from repro_torch.core.elasticity_torch import simulate_elastic_torch
+    from repro_torch.energy.supply import EnergyConfig, EnergySpec
+    from repro_torch.energy.supply_torch import simulate_supply_torch
+    from repro_torch.launch.sweep_scale import engine, layers
+    from repro_torch.traffic import request_matrix
+    from repro_torch.traffic.sim_torch import simulate_traffic_torch
+    from repro_torch.workload.azure_like import sample_population_matrix
+    n = 500
+    demand = sample_population_matrix(n, days=1, seed=2)
+    _, eng = engine(n)
+    lay = layers(n)
+    pa, pb = (plan_torch(eng, demand, faults=lay["faults"], device=d)
+              for d in (cuda, "cpu"))
+    for f in ("assign", "migrations", "failed_migrations"):
+        assert np.array_equal(getattr(pa, f), getattr(pb, f)), f
+    cfg = dataclasses.replace(lay["traffic"], replicas=dataclasses.replace(
+        lay["traffic"].replicas, budget_g_per_epoch=16.0))
+    req = request_matrix(cfg.population, 288, 300.0).requests
+    a, b = (simulate_traffic_torch(req, pb.region_intensity, cfg, device=d)
+            for d in (cuda, "cpu"))
+    assert np.array_equal(a.replicas, b.replicas)
+    assert np.allclose(a.served, b.served, rtol=1e-12, atol=0.0)
+    rng = np.random.default_rng(0)
+    streams = (rng.uniform(0.0, 4000.0, (288, 3)),
+               rng.uniform(0.0, 3000.0, (288, 3)),
+               rng.uniform(20.0, 600.0, (288, 3)),
+               (rng.random((288, 3)) > 0.1).astype(float))
+    spec = EnergySpec.from_config(EnergyConfig(), 50, 3, 300.0, 2.0)
+    a, b = (simulate_supply_torch(*streams, spec, device=d)
+            for d in (cuda, "cpu"))
+    for f in ("soc", "supplied", "cap_frac", "c_eff"):
+        assert np.allclose(getattr(a, f), getattr(b, f), rtol=1e-12,
+                           atol=0.0), f
+    ela = dataclasses.replace(lay["elasticity"], budget_g_per_epoch=4.0 * n)
+    plan = plan_torch(eng, demand, device="cpu")
+    a, b = (simulate_elastic_torch(demand, (plan.region_intensity,
+                                            plan.assign), ela, 300.0,
+                                   record=True, device=d)
+            for d in (cuda, "cpu"))
+    assert np.array_equal(a.levels, b.levels)
+    assert a.levels.sum() > n * 288            # optional levels admitted
+
+
+@pytest.mark.parametrize("elasticity", [True, False],
+                         ids=["all_four", "folded_in_scan"])
+def test_layered_sweep_on_card_equals_cpu(cuda, elasticity):
+    """jax_sweep_scale's layers and fault plan at 400 traces x 10
+    targets: rows within 1e-6, counts exact."""
+    from repro_torch.launch.sweep_scale import engine, spec
+    from repro_torch.workload.azure_like import sample_population_matrix
+    n = 400
+    demand = sample_population_matrix(n, days=1, seed=2)
+    _, eng = engine(n)
+    a, b = (spec(demand, eng, d, elasticity=elasticity).run()
+            for d in (cuda, "cpu"))
+    assert [set(r) for r in a] == [set(r) for r in b]
+    assert a.parity(b) <= 1e-6
+    for x, y in zip(a, b):
+        for k in ("migrations_mean", "placement_migrations_mean",
+                  "fault_failed_migrations_mean", "elastic_level_epochs",
+                  "traffic_replica_epochs", "energy_cap_violations",
+                  "energy_soc_violations", "elastic_cap_violations"):
+            if k in x:
+                assert x[k] == y[k], k
 
 
 # B, Sq, Skv, Hq, Hkv, Dh, causal, window: tests/test_kernels.py's

@@ -148,10 +148,18 @@ def test_torch_fleet_rejects_what_is_not_ported():
     carbon = TraceProvider.for_region("PL", hours=24, seed=1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.run(Custom(), np.ones((4, 2)), carbon, 45.0, device="cpu")
-    for kw in ("traffic", "energy", "carbon_obs", "power_gap"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # the layer inputs are ported: what a run cannot take raises as in
+    # the reference
+    for kw in ("traffic", "energy"):
+        with pytest.raises(ValueError, match="requires indexed carbon"):
             sim.run(policy.CarbonAgnosticPolicy(), np.ones((4, 2)), carbon,
                     45.0, device="cpu", **{kw: object()})
+    with pytest.raises(ValueError, match="observed carbon shape"):
+        sim.run(policy.CarbonAgnosticPolicy(), np.ones((4, 2)), carbon,
+                45.0, carbon_obs=np.ones((4, 3)), device="cpu")
+    with pytest.raises(ValueError, match="power-gap vector shape"):
+        sim.run(policy.CarbonAgnosticPolicy(), np.ones((4, 2)), carbon,
+                45.0, power_gap=np.ones(5), device="cpu")
     with pytest.raises(ValueError, match="non-negative"):
         sim.run(policy.CarbonAgnosticPolicy(), np.array([[0.5], [-0.1]]),
                 carbon, 45.0, device="cpu")

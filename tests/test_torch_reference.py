@@ -1,7 +1,8 @@
 """The JAX reference, made callable for the port's parity tests.
 
-jax 0.9 has no `jax.experimental.enable_x64`, so the reference's
-placement and fleet scan modules import with ``HAS_JAX = False``. The
+jax 0.9 has no `jax.experimental.enable_x64`, so the reference's JAX
+sweep modules (the placement and fleet scans, the traffic and energy
+steps, the elasticity scan) import with ``HAS_JAX = False``. The
 `jax_reference` fixture patches their five module globals (``HAS_JAX``,
 ``jax``, ``jnp``, ``lax``, ``enable_x64 = jax.enable_x64``) for one test
 and undoes them after it, so the reference's own tests see the modules
@@ -17,10 +18,14 @@ import jax.numpy as jnp  # noqa: E402
 from jax import lax  # noqa: E402
 
 import repro.cluster.placement_jax as ref_placement_jax  # noqa: E402
+import repro.core.elasticity_jax as ref_elasticity_jax  # noqa: E402
 import repro.core.fleet_jax as ref_fleet_jax  # noqa: E402
+import repro.energy.supply_jax as ref_supply_jax  # noqa: E402
+import repro.traffic.sim_jax as ref_sim_jax  # noqa: E402
 
 REGIONS = ("PL", "NL", "CAISO")
-REF_MODULES = (ref_placement_jax, ref_fleet_jax)
+REF_MODULES = (ref_placement_jax, ref_fleet_jax, ref_elasticity_jax,
+               ref_sim_jax, ref_supply_jax)
 
 
 def patch_reference(monkeypatch):
@@ -34,8 +39,8 @@ def patch_reference(monkeypatch):
 
 @pytest.fixture
 def jax_reference(monkeypatch):
-    """The reference's placement and fleet-scan modules, runnable for
-    the duration of one test."""
+    """The reference's JAX sweep modules, runnable for the duration of
+    one test; returns the placement and fleet-scan modules."""
     patch_reference(monkeypatch)
     return ref_placement_jax, ref_fleet_jax
 
@@ -66,7 +71,7 @@ def engines(n, capacity, days=1, min_dwell=6, hysteresis=0.10):
 
 def test_reference_runs_under_the_fixture(jax_reference):
     placement_jax, fleet_jax = jax_reference
-    assert placement_jax.HAS_JAX and fleet_jax.HAS_JAX
+    assert all(m.HAS_JAX for m in REF_MODULES)
     from repro.workload.azure_like import sample_population_matrix
     demand = sample_population_matrix(12, days=1, seed=3)
     ref, _ = engines(12, capacity=6)

@@ -46,6 +46,8 @@ def placed():
 def _assert_rows_match(ref, got):
     assert got.backend == "torch"
     assert len(got) == len(ref)
+    # the same row keys: `parity` compares only the keys both results have
+    assert [set(b) for b in got.rows] == [set(a) for a in ref.rows]
     assert got.parity(ref) <= TOL
     for a, b in zip(ref.rows, got.rows):
         assert (a["policy"], a["target"]) == (b["policy"], b["target"])
@@ -138,14 +140,45 @@ def test_from_reference_arrays_checks_shapes():
             assign=np.zeros((3, 2)), region_intensity=np.ones((4, 3))))
 
 
+def _layer(name):
+    from repro_torch.core.elasticity import ElasticityConfig
+    from repro_torch.energy import EnergyConfig
+    from repro_torch.robustness import FaultPlan
+    from repro_torch.traffic import TrafficConfig
+    return {"traffic": TrafficConfig, "elasticity": ElasticityConfig,
+            "energy": EnergyConfig, "faults": FaultPlan}[name]()
+
+
 @pytest.mark.parametrize("layer", ["traffic", "elasticity", "energy",
                                    "faults"])
 def test_later_layers_raise_not_implemented(layer):
+    """The four layers are ported, so none raises NotImplementedError any
+    more; a sweep they cannot run is refused as the reference refuses it
+    (traffic, elasticity and energy need placement, faults on an
+    unplaced sweep a carbon signal to degrade)."""
     spec = SweepSpec(_pols(policy), paper_family(), np.ones((4, 2)),
-                     TARGETS[:1], carbon=TraceProvider.for_region("PL"),
-                     device="cpu", **{layer: object()})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+                     TARGETS[:1], device="cpu", **{layer: _layer(layer)})
+    with pytest.raises(ValueError, match="placement|carbon signal"):
         spec.run()
+
+
+def test_sweep_result_is_a_sequence_of_rows(jax_reference):
+    """`SweepResult` iterates and indexes its rows, keeps the spec that
+    made it, and reports `violations` as the reference's does."""
+    traces = sample_population_matrix(6, days=1, seed=8)
+    ref = RefSweepSpec(_pols(ref_policy), ref_paper_family(), traces,
+                       TARGETS[:2], carbon=RefTP.for_region("NL", hours=24,
+                                                            seed=1),
+                       backend="jax").run()
+    spec = SweepSpec(_pols(policy), paper_family(), traces, TARGETS[:2],
+                     carbon=TraceProvider.for_region("NL", hours=24, seed=1),
+                     device="cpu")
+    got = spec.run()
+    assert got.spec is spec
+    assert list(got) == got.rows and len(list(iter(got))) == len(ref)
+    assert got[0] is got.rows[0] and got[-1] is got.rows[-1]
+    assert [r["policy"] for r in got] == [r["policy"] for r in ref]
+    assert got.violations == ref.violations == {}
 
 
 def test_spec_rejects_other_backends():
