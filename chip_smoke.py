@@ -66,6 +66,19 @@ raising on failure so the run exits non-zero:
      region-epoch, no energy cap or state-of-charge violation; device
      time (torch.profiler) and host time by stage (cProfile); then the
      elastic levels at 100,000 traces against the NumPy layer's;
+  5d. the scenario stress matrix (`repro_torch.energy.scenarios`): at the
+     reference's shape (T = 288, 24 traces, targets 40 and 80 g/h) on the
+     card and on the CPU, every cell ok, rows within PARITY_TOL with the
+     same keys and the counts exact, plans equal; then every cell at
+     100,000 traces (400,000 containers, the energy step folded into the
+     fleet scan on the card): T admission launches, conservation <= 1e-6
+     W, no cap or state-of-charge violation, per cell `sweep_s`,
+     container-epochs/s, peak memory, unmet energy and outage epochs, and
+     one cell's device busy share and host time by stage;
+  5e. custom policies: subclassed CarbonAgnosticPolicy and
+     CarbonContainerPolicy, which run their own `decide_batch` on the
+     host once an epoch, at 2,000 traces x 1 target x 288 epochs, placed:
+     rows within 1e-9 of the stock kernels', counts exact;
   6. serving cross-checks at the published widths in float32, the same
      weights on the card and on the CPU, batch 2, then 8 decode steps fed
      the CPU's greedy tokens, every step's logits within 1e-3:
@@ -77,15 +90,22 @@ raising on failure so the run exits non-zero:
      mamba2-2.7b and recurrentgemma-9b with seeded random weights on the
      card, `ServeEngine.generate` of 32 greedy tokens after 4 prompts of
      2,048 random tokens, then a torch.profiler breakdown of one prefill
-     and of one decode step.
+     and of one decode step;
+  7b. carbon-aware serving on the loaded phi4-mini engine
+     (`repro_torch.launch.carbon_serve`): the decode capacity calibrated
+     on the card, the 96-interval control loop, and the duty it chose
+     applied to `generate`: the decode loop's wall time over its
+     device-synced step time must be 1/duty within 10 %.
 
-Phases 5, 5c and 7 are the main paths: every kernel's launch counter is
-set to 0 just before each path and read just after; each path must have
-launched exactly its kernels (T admission launches in each sweep, one
-per epoch; per prefill 32 flash launches for phi4-mini, 64 SSD launches
-for Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma) and no
-others, every flash launch on the wgmma route, every SSD launch on the
-mma_sync route and every RG-LRU launch on the ring route.
+Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7
+and 7b are the main paths: every kernel's launch counter is set to 0
+just before each path and read just after; each path must have launched
+exactly its kernels (T admission launches in each sweep, one per epoch;
+per prefill 32 flash launches for phi4-mini, 64 SSD launches for
+Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma; two
+phi4-mini prefills in 7b) and no others, every flash launch on the wgmma
+route, every SSD launch on the mma_sync route and every RG-LRU launch on
+the ring route.
 
 Prints the nvidia-smi line, one line of phase results, the ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``. The full record
@@ -161,7 +181,8 @@ def _device_profile(fn):
 
 
 # the sweep's stages, by function name, for the host-time breakdown
-HOST_STAGES = ("sweep_population_torch", "_prepare_sweep_inputs",
+HOST_STAGES = ("run_scenario", "_shared_inputs", "sweep_population_torch",
+               "_prepare_sweep_inputs",
                "plan_torch", "migration_failure_mask", "observe_intensity",
                "request_matrix", "simulate_traffic", "_prepare_energy",
                "simulate_supply", "simulate_elastic_torch", "forecast_series",
@@ -313,7 +334,8 @@ def admission_phase(dev):
 # window bites (RecurrentGemma's heads), then cases that cross the wgmma
 # kernel's 64-key tiles and 128-row blocks (Sq, Skv not multiples of 64,
 # Sq != Skv, a window ending inside a tile, G = 3 and 16, Dh 64 / 128 /
-# 256); the main paths' shapes come last
+# 256), then the carbon-serve calibration prefill (phi4-mini's heads, 4 x
+# 8 tokens); the main paths' shapes come last
 FLASH_CASES = [(2, 128, 128, 4, 2, 32, True, 0),
                (1, 64, 64, 2, 1, 16, True, 24),
                (2, 128, 128, 4, 4, 64, False, 0),
@@ -325,7 +347,8 @@ FLASH_CASES = [(2, 128, 128, 4, 2, 32, True, 0),
                (1, 1024, 1024, 4, 4, 256, True, 300),
                (1, 200, 1000, 6, 2, 128, False, 0),
                (1, 1000, 200, 3, 1, 64, True, 0),
-               (2, 1000, 1000, 8, 8, 256, False, 300)]
+               (2, 1000, 1000, 8, 8, 256, False, 300),
+               (4, 8, 8, 24, 8, 128, True, 0)]
 FLASH_MAIN = (4, 2048, 2048, 24, 8, 128, True, 0)   # phi4-mini prefill, bf16
 FLASH_RG = (4, 2048, 2048, 16, 1, 256, True, 2048)  # RecurrentGemma prefill
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
@@ -680,28 +703,28 @@ ELASTIC_CHECK_G = 4.0       # g per trace per epoch: 1.12 levels a container
 #                             against 1.36 uncapped, on the raw demand
 
 
-def _layered_plan(demand, eng, lay, device, timing=None):
-    """The layered sweep's plan on `device`, through the sweep's own
-    prologue: grid shocks on the true feed, the degrade ladder, the
-    seeded migration-failure mask. With `timing`, ``timing["plan_s"]``
-    gets the planner's wall time (ended by its host copy)."""
+def _sweep_plan(spec, device, timing=None):
+    """The plan of a `SweepSpec` on `device`, through the sweep's own
+    prologue: grid events on the true feed, the fault plan's degraded
+    feed and seeded migration-failure mask. With `timing`,
+    ``timing["plan_s"]`` gets the planner's wall time (ended by its host
+    copy)."""
     from repro_torch.cluster.placement import plan_torch
     from repro_torch.core.fleet import _prepare_sweep_inputs
-    from repro_torch.core.simulator import SimConfig
-    cfg = SimConfig(target_rate=0.0)
 
     def plan_fn(e, d, flt):
         if timing is not None and str(device) != "cpu":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        plan = plan_torch(e, d, state_gb=cfg.state_gb, faults=flt,
+        plan = plan_torch(e, d, state_gb=spec.sim.state_gb, faults=flt,
                           device=device)
         if timing is not None:
             timing["plan_s"] = time.perf_counter() - t0
         return plan
     return _prepare_sweep_inputs(
-        demand, None, list(np.linspace(20.0, 80.0, N_TARGETS)), cfg, 1.0,
-        eng, plan_fn, energy=lay["energy"], faults=lay["faults"])[3]
+        spec.traces, spec.carbon, spec.targets, spec.sim, spec.demand_scale,
+        spec.resolve_placement(), plan_fn, energy=spec.energy,
+        faults=spec.faults)[3]
 
 
 def _rows_exact(a, b, where):
@@ -833,7 +856,7 @@ def layered_cross_check(dev):
     T = demand.shape[0]
     cap, eng = engine(n)
     lay = layers(n)
-    p_gpu, p_cpu = (_layered_plan(demand, eng, lay, d) for d in (dev, "cpu"))
+    p_gpu, p_cpu = (_sweep_plan(spec(demand, eng, d), d) for d in (dev, "cpu"))
     for f in ("assign", "migrations", "failed_migrations"):
         if not np.array_equal(getattr(p_gpu, f), getattr(p_cpu, f)):
             raise AssertionError(f"card and CPU plans differ in {f}")
@@ -938,7 +961,7 @@ def layered_full_width(dev):
     cap, eng = engine(n_traces)
     timing = {}
     lay = layers(n_traces)
-    plan = _layered_plan(demand, eng, lay, dev, timing)
+    plan = _sweep_plan(spec(demand, eng, dev), dev, timing)
     over = int((plan.occupancy() > cap).sum())
     if over:
         raise AssertionError(f"{over} over-capacity region-epochs")
@@ -1000,6 +1023,232 @@ def layered_full_width(dev):
         out["sweep_device_s"] = prof[1]
         out["sweep_device_busy_share"] = prof[1] / sweep_s
     return out
+
+
+SCENARIO_T, SCENARIO_CROSS_TRACES = 288, 24     # the reference's own shape
+SCENARIO_TARGETS = (40.0, 80.0)
+SCENARIO_EXACT = ("migrations_mean", "placement_migrations_mean",
+                  "fault_failed_migrations_mean", "energy_outage_epochs",
+                  "energy_cap_violations", "energy_soc_violations")
+
+
+def scenario_cross_check(dev):
+    """The scenario matrix at the reference's shape (T = 288, 24 traces,
+    targets 40 and 80 g/h), `run_matrix(devices=("cuda", "cpu"))`: every
+    cell `ok`; rows within PARITY_TOL (expected bit-equal) with the same
+    keys and the counts exact; each cell's plan (assignments, moves and
+    failed moves) the same on the card as on the CPU."""
+    from repro_torch.energy import scenarios as sc
+    cells = sc.run_matrix(T=SCENARIO_T, n_tr=SCENARIO_CROSS_TRACES,
+                          targets=SCENARIO_TARGETS, devices=(dev, "cpu"))
+    out = {}
+    for cell in cells:
+        card, cpu = cell["results"][dev], cell["results"]["cpu"]
+        if not cell["ok"]:
+            raise AssertionError(f"scenario {cell['name']}: {cell['checks']}")
+        for a, b in zip(card, cpu):
+            if set(a) != set(b):
+                raise AssertionError(f"scenario {cell['name']}: row keys "
+                                     f"differ: {sorted(set(a) ^ set(b))}")
+            for k in SCENARIO_EXACT:
+                if k in a and a[k] != b[k]:
+                    raise AssertionError(f"scenario {cell['name']}: {k} "
+                                         f"{a[k]} on the card, {b[k]} on "
+                                         f"the CPU")
+        plans = [_sweep_plan(card.spec, d) for d in (dev, "cpu")]
+        for f in ("assign", "migrations", "failed_migrations"):
+            x, y = (getattr(p, f) for p in plans)
+            if (x is None) != (y is None) or (
+                    x is not None and not np.array_equal(x, y)):
+                raise AssertionError(f"scenario {cell['name']}: card and "
+                                     f"CPU plans differ in {f}")
+        out[cell["name"]] = {
+            "checks": cell["checks"], "rows_equal": card.rows == cpu.rows,
+            "meta": {k: v for k, v in cell["meta"].items()
+                     if k != "episodes"},
+            "plan_migrations": int(plans[0].migrations.sum()),
+            "sweep_s": cell["sweep_s"][dev], "cpu_sweep_s": cell["sweep_s"][
+                "cpu"]}
+    return {"n_traces": SCENARIO_CROSS_TRACES, "n_epochs": SCENARIO_T,
+            "targets": list(SCENARIO_TARGETS),
+            "max_parity": max(c["checks"]["backend_parity"]
+                              for c in out.values()),
+            "cells": out}
+
+
+def scenario_full_width(dev):
+    """Every cell of the scenario matrix at 100,000 traces (the trace count
+    of jax_sweep_scale): 2 policies x 2 targets x 100,000 = 400,000
+    containers over 288 epochs, the energy step folded into the fleet
+    scan on the card. Each cell is a main path: T admission launches (one
+    planned sweep), no other kernel; conservation <= 1e-6 W, no cap or
+    state-of-charge violation. Then the device busy share of one cell
+    and its host time by stage (cProfile)."""
+    from repro_torch.energy import scenarios as sc
+    n_tr, T = FULL_TRACES, SCENARIO_T
+    n = 2 * len(SCENARIO_TARGETS) * n_tr
+    cells, launches = {}, {}
+    for cell in sc.build_matrix(T):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = sc.run_scenario(cell, T=T, n_tr=n_tr, targets=SCENARIO_TARGETS,
+                              devices=(dev,))
+        total_s = time.perf_counter() - t0
+        counts = _read_counts()
+        want = {name: 0 for name in counts}
+        want["admission_round"] = T
+        if counts != want:
+            raise AssertionError(f"scenario {cell.name}: kernel launches "
+                                 f"{counts}, expected {want}")
+        if not out["ok"]:
+            raise AssertionError(f"scenario {cell.name}: {out['checks']}")
+        res = out["results"][dev]
+        _check_rows(res, len(res.rows))
+        sweep_s = out["sweep_s"][dev]
+        rec = {"sweep_s": sweep_s, "setup_s": total_s - sweep_s,
+               "container_epochs_per_s": n * T / sweep_s,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(dev),
+               "admission_launches": counts["admission_round"],
+               "energy_unmet_frac": out["unmet_frac"],
+               "outage_epochs": out["outage_epochs"], **out["checks"]}
+        cells[cell.name] = rec
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"[scenario {cell.name}] " + json.dumps(rec), flush=True)
+        del out, res
+        gc.collect()
+    # where the time goes in one cell, after the counted runs
+    prof = {}
+    cell = sc.build_matrix(T)[0]
+    wall, dev_s, top = _device_profile(lambda: prof.update(sc.run_scenario(
+        cell, T=T, n_tr=n_tr, targets=SCENARIO_TARGETS, devices=(dev,))))
+    profile = {"cell": cell.name, "wall_s": wall, "device_s": dev_s,
+               "sweep_s": prof["sweep_s"][dev], "top": top}
+    if dev_s is not None:
+        profile["device_busy_share"] = dev_s / prof["sweep_s"][dev]
+    host_wall, host = _host_breakdown(lambda: sc.run_scenario(
+        cell, T=T, n_tr=n_tr, targets=SCENARIO_TARGETS, devices=(dev,)))
+    profile["host_breakdown"] = {"wall_s": host_wall, "cumulative_s": host}
+    return {"n_traces": n_tr, "n_containers": n, "n_epochs": T,
+            "targets": list(SCENARIO_TARGETS), "cells": cells,
+            "launches": launches, "profile": profile}
+
+
+CUSTOM_TRACES = 2_000
+
+
+def custom_policy(dev):
+    """A subclass of a stock policy defeats the fleet's exact-type
+    dispatch, so its own `decide_batch` runs on the host once an epoch:
+    2,000 traces x 1 target x 288 epochs on the card, placed; its rows
+    within 1e-9 of the stock kernel's, counts exact. A subclassed
+    CarbonAgnosticPolicy (the main path; its admission launches are
+    counted) and a subclassed CarbonContainerPolicy (whose decisions
+    read the state)."""
+    from repro_torch.cluster.slices import paper_family
+    from repro_torch.core.policy import (CarbonAgnosticPolicy,
+                                         CarbonContainerPolicy)
+    from repro_torch.core.spec import SweepSpec
+    from repro_torch.launch.sweep_scale import engine
+    from repro_torch.workload.azure_like import sample_population_matrix
+    demand = sample_population_matrix(CUSTOM_TRACES, days=1, seed=SEED)
+    _, eng = engine(CUSTOM_TRACES)
+    out = {"n_traces": CUSTOM_TRACES, "targets": [45.0]}
+    for name, stock in (("agnostic", CarbonAgnosticPolicy),
+                        ("cc_energy", CarbonContainerPolicy)):
+        custom = type(f"Custom{stock.__name__}", (stock,), {})
+        runs = {}
+        for kind, pol in (("custom", custom), ("stock", stock)):
+            spec = SweepSpec(policies={"x": pol}, family=paper_family(),
+                             traces=demand, targets=[45.0], placement=eng,
+                             device=dev)
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            runs[kind] = spec.run()
+            torch.cuda.synchronize()
+            runs[kind + "_s"] = time.perf_counter() - t0
+            runs[kind + "_launches"] = _read_counts()
+        want = {k: 0 for k in runs["custom_launches"]}
+        want["admission_round"] = SCENARIO_T
+        if runs["custom_launches"] != want:
+            raise AssertionError(f"custom {name}: launches "
+                                 f"{runs['custom_launches']}, expected "
+                                 f"{want}")
+        parity = runs["custom"].parity(runs["stock"])
+        a, b = runs["custom"][0], runs["stock"][0]
+        if parity > 1e-9 or any(a[k] != b[k] for k in (
+                "migrations_mean", "placement_migrations_mean")):
+            raise AssertionError(f"custom {name} vs the stock kernel: rows "
+                                 f"{parity}")
+        out[name] = {"parity_vs_stock": parity, "custom_s": runs["custom_s"],
+                     "stock_s": runs["stock_s"],
+                     "migrations_mean": a["migrations_mean"],
+                     "carbon_rate_mean": a["carbon_rate_mean"]}
+        if name == "agnostic":
+            out["launches"] = runs["custom_launches"]
+    return out
+
+
+def carbon_serve(engine, dev):
+    """`repro_torch.launch.carbon_serve` on a loaded engine: the decode
+    capacity calibrated on the card as its `main` does, the 96-interval
+    control loop, then the duty it chose (its smallest in (0, 1), else
+    0.5) applied to `generate` of 8 tokens: the decode loop's wall time
+    over its device-synced step time must be 1/duty within 10 %. Every
+    flash launch of the path (the two prefills) is on the wgmma route."""
+    from collections import Counter
+
+    from repro_torch.launch.carbon_serve import (TARGET_G_PER_H, calibrate,
+                                                 control_loop, summary)
+    _zero_counts()
+    t0 = time.perf_counter()
+    tok_s = calibrate(engine)
+    calibrate_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records, sch = control_loop(tok_s)
+    loop_s = time.perf_counter() - t0
+    s = summary(records, sch)
+    duties = [r["duty"] for r in records if 0.0 < r["duty"] < 1.0]
+    duty = min(duties) if duties else 0.5
+    prompts = np.zeros((4, 8), np.int32)
+    engine.stats = dict.fromkeys(engine.stats, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.generate(prompts, 8, duty=duty)
+    wall = time.perf_counter() - t0
+    decode_wall = wall - engine.stats["prefill_s"]
+    ratio = decode_wall / engine.stats["decode_s"]
+    launches, routes = _read_counts(), _read_routes()
+    n_layers = engine.model.cfg.n_layers
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = 2 * n_layers          # two prefills
+    if launches != want or routes["flash_attention"].get(
+            "wgmma", 0) != want["flash_attention"]:
+        raise AssertionError(f"carbon serve: launches {launches}, routes "
+                             f"{routes}; expected {want} on wgmma")
+    if not abs(ratio * duty - 1.0) <= 0.10:
+        raise AssertionError(f"carbon serve: at duty {duty} the decode "
+                             f"loop took {ratio} x its step time, not "
+                             f"1/duty = {1.0 / duty} within 10 %")
+    if len(records) != 96 or not np.isfinite(s["avg_rate"]):
+        raise AssertionError(f"carbon serve: {len(records)} records, "
+                             f"avg C(t) {s['avg_rate']}")
+    return {"arch": engine.model.cfg.name, "tok_s": tok_s,
+            "calibrate_s": calibrate_s, "loop_s": loop_s,
+            "avg_rate_g_per_h": s["avg_rate"], "target_g_per_h":
+            TARGET_G_PER_H, "served": s["n"], "p50_s": s["p50_s"],
+            "p95_s": s["p95_s"],
+            "kinds": dict(Counter(r["kind"] for r in records)),
+            "slices": dict(Counter(r["slice"] for r in records)),
+            "duty_check": {"duty": duty, "new_tokens": 8,
+                           "decode_wall_s": decode_wall,
+                           "decode_s": engine.stats["decode_s"],
+                           "wall_over_step": ratio,
+                           "expected": 1.0 / duty},
+            "launches": launches, "route_launches": routes}
 
 
 def _kernel_counters():
@@ -1183,13 +1432,15 @@ SERVE_FULL = [("phi4-mini-3.8b", {"flash_attention": 32}),
                                      "flash_attention": 12})]
 MAIN_ROUTES = {"flash_attention": "wgmma", "ssd_scan": "mma_sync",
                "rglru_scan": "ring"}
+CARBON_SERVE_ARCH = "phi4-mini-3.8b"    # the carbon-aware serving loop
 
 
-def serving_full_width(dev, arch, expected, warmup_len):
+def serving_full_width(dev, arch, expected, warmup_len, then=None):
     """`ServeEngine.generate` of 32 greedy tokens after 4 prompts of
     2,048 random tokens at the published widths and depth, seeded random
     weights; then a torch.profiler breakdown of one prefill and one
-    decode step."""
+    decode step. `then(engine)`, where given, runs last on the same
+    engine; its result is returned beside."""
     from repro_torch.serve.engine import ServeEngine, throughput_tokens_per_s
     model = _serving_model(arch)
     cfg = model.cfg
@@ -1242,14 +1493,16 @@ def serving_full_width(dev, arch, expected, warmup_len):
         params, res["cache"], torch.argmax(logits, -1)))
     profile = {name: dict(zip(("wall_s", "device_s", "top"), prof))
                for name, prof in (("prefill", pre), ("decode_step", dec))}
-    return {"arch": arch, "params": model.param_count(),
-            "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
-            "new_tokens": SERVE_NEW_TOKENS, "load_s": load_s,
-            "prefill_s": out["stats"]["prefill_s"],
-            "decode_s": out["stats"]["decode_s"], **tp,
-            "max_memory_allocated": peak, "launches": launches,
-            "route_launches": routes, "tokens_head": toks[:, :8].tolist(),
-            "profile": profile}
+    record = {"arch": arch, "params": model.param_count(),
+              "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+              "new_tokens": SERVE_NEW_TOKENS, "load_s": load_s,
+              "prefill_s": out["stats"]["prefill_s"],
+              "decode_s": out["stats"]["decode_s"], **tp,
+              "max_memory_allocated": peak, "launches": launches,
+              "route_launches": routes, "tokens_head": toks[:, :8].tolist(),
+              "profile": profile}
+    del res, logits
+    return (then(engine) if then is not None else None), record
 
 
 def _free_device_memory():
@@ -1304,19 +1557,31 @@ def main():
     layered_cross = layered_cross_check(dev)
     layered = layered_full_width(dev)
     _free_device_memory()
+    scenario_cross = scenario_cross_check(dev)
+    scenarios = scenario_full_width(dev)
+    _free_device_memory()
+    custom = custom_policy(dev)
+    _free_device_memory()
     serve_cross = [serving_cross_check(dev, arch, n, ov)
                    for arch, n, ov in SERVE_CROSS]
     _free_device_memory()
-    serve = []
+    serve, cserve = [], None
     for arch, expected in SERVE_FULL:
         warmup = 128 if arch == "phi4-mini-3.8b" else 256
-        serve.append(serving_full_width(dev, arch, expected, warmup))
+        then = (lambda e: carbon_serve(e, dev)) if arch == CARBON_SERVE_ARCH \
+            else None
+        follow, record = serving_full_width(dev, arch, expected, warmup, then)
+        serve.append(record)
+        cserve = follow if follow is not None else cserve
         _free_device_memory()
 
     # launches: the count of each kernel over the main paths that run it
     by_path = {"placed_sweep": full["launches"],
                "placed_sweep_layered": layered["launches"],
-               **{r["arch"]: r["launches"] for r in serve}}
+               "scenario_matrix": scenarios["launches"],
+               "custom_policy": custom["launches"],
+               **{r["arch"]: r["launches"] for r in serve},
+               f"carbon_serve_{CARBON_SERVE_ARCH}": cserve["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
                                       by_path.items() if counts[name]}
@@ -1332,8 +1597,11 @@ def main():
               "full_width": full, "device_arithmetic": arithmetic,
               "layered_cross_check": layered_cross,
               "layered_full_width": layered,
+              "scenario_cross_check": scenario_cross,
+              "scenario_full_width": scenarios, "custom_policy": custom,
               "serving_cross_check": serve_cross,
-              "bf16_kernels_vs_plain": bf16_check, "serving": serve}
+              "bf16_kernels_vs_plain": bf16_check, "serving": serve,
+              "carbon_serve": cserve}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     summary = {k: v for k, v in full.items() if k not in ("rows", "profile")}
@@ -1358,6 +1626,16 @@ def main():
                       | {k: {"rows_parity": layered_cross[k]["rows_parity"]}
                          for k in ("a_all_four", "b_folded_in_scan")},
                       "layered_full_width": layered_summary,
+                      "scenario_cross_check": {
+                          k: v for k, v in scenario_cross.items()
+                          if k != "cells"},
+                      "scenario_full_width": {
+                          "cells": scenarios["cells"],
+                          "profile": {k: v for k, v in
+                                      scenarios["profile"].items()
+                                      if k != "top"},
+                          "top": scenarios["profile"]["top"][:6]},
+                      "custom_policy": custom, "carbon_serve": cserve,
                       "serving_cross_check": [
                           {k: v for k, v in r.items() if k != "errs"}
                           for r in serve_cross],

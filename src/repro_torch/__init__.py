@@ -13,6 +13,10 @@ retry carry of failed migrations) -> `simulate_elastic_torch` (the
 elasticity layer's own epoch loop) -> `FleetSimulatorTorch` (the epoch
 loop with the policy deciders, the traffic and energy steps folded in,
 decisions on the observed carbon feed). `PlacementEngine.run` is the
-placed fleet run. Serving covers the dense, Mamba-2 and RecurrentGemma
+placed fleet run. The Carbon Container controller (`core.policy`'s
+scalar and batch decisions, `core.container`, `core.simulator.simulate`),
+the scenario stress matrix (`energy.scenarios`) and the carbon-aware
+serving loop (`launch.carbon_serve`) are host code copied from the
+reference. Serving covers the dense, Mamba-2 and RecurrentGemma
 families.
 """

@@ -1,21 +1,29 @@
 """Carbon-intensity providers (host numpy, copied from
 `repro.carbon.intensity`).
 
-Providers expose ``intensity_series(t_seconds)`` in g·CO₂e/kWh,
-piecewise constant per hour (paper §3.1.2).
+Providers expose ``intensity(t_seconds)`` (the scalar controller's
+lookup) and ``intensity_series(t_seconds)`` (the fleet's) in
+g·CO₂e/kWh, piecewise constant per hour (paper §3.1.2).
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Protocol, Sequence
 
 import numpy as np
 
 from repro_torch.carbon.traces import fill_gaps, synth_trace
 
 
+class CarbonIntensityProvider(Protocol):
+    def intensity(self, t_seconds: float) -> float: ...
+
+
 class ConstantProvider:
     def __init__(self, value: float):
         self.value = float(value)
+
+    def intensity(self, t_seconds: float) -> float:
+        return self.value
 
     def intensity_series(self, t_seconds: np.ndarray) -> np.ndarray:
         return np.full(np.shape(t_seconds), self.value, dtype=np.float64)
@@ -36,6 +44,10 @@ class TraceProvider:
     @classmethod
     def for_region(cls, region: str, hours: int = 24 * 30, seed: int = 0):
         return cls(synth_trace(region, hours, seed))
+
+    def intensity(self, t_seconds: float) -> float:
+        idx = int((t_seconds - self.start_s) // 3600.0) % len(self.hourly)
+        return float(self.hourly[idx])
 
     def intensity_series(self, t_seconds: np.ndarray) -> np.ndarray:
         t = np.asarray(t_seconds, dtype=np.float64)

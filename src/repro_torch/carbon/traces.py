@@ -34,6 +34,10 @@ def synth_trace(region: str | RegionStats, hours: int = 24 * 30,
     return r.avg * np.maximum(0.05, 1.0 + diurnal + ar)
 
 
+def trace_cov(series: np.ndarray) -> float:
+    return float(np.std(series) / np.mean(series))
+
+
 def fill_gaps(series, gap_policy: str = "raise") -> np.ndarray:
     """Guard a carbon trace against NaN gaps (missing API samples):
     "raise" rejects them, "interpolate" fills interior gaps linearly and

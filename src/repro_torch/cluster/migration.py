@@ -20,6 +20,25 @@ class MigrationCostModel:
     transfer_gbps: float = 1.0          # GB/s uncompressed path
     restore_extra_s: float = 0.0        # e.g. compile-cache miss penalty
 
+    def suspend_time(self, state_gb: float) -> float:
+        return self.suspend_base_s + self.suspend_per_gb_s * state_gb
+
+    def resume_time(self, state_gb: float) -> float:
+        return self.resume_base_s + self.resume_per_gb_s * state_gb
+
+    def stop_and_copy_time(self, state_gb: float, compressed: bool = True,
+                           transfer_gbps: float = 0.0) -> float:
+        """Total downtime of a stop-and-copy migration (paper Fig. 7);
+        the scalar simulator's."""
+        bw = transfer_gbps or self.transfer_gbps
+        t = self.suspend_time(state_gb) + self.resume_time(state_gb)
+        if compressed:
+            t += (self.compress_per_gb_s + self.decompress_per_gb_s) * state_gb
+            t += (state_gb / self.compression_ratio) / bw
+        else:
+            t += state_gb / bw
+        return t + self.restore_extra_s
+
     def stop_and_copy_time_batch(self, state_gb, transfer_gbps):
         """Compressed stop-and-copy downtime over arrays, in the
         reference's term order (zero bandwidth falls back to

@@ -24,6 +24,9 @@ class Slice:
     chips: int = 0             # 0 for the paper's abstract servers
     state_bw_gbps: float = 1.0  # checkpoint/migration path bandwidth (GB/s)
 
+    def capacity(self) -> float:
+        return self.multiple
+
 
 class SliceFamily:
     """Ordered catalog (smallest -> largest) with availability tracking."""
@@ -34,6 +37,16 @@ class SliceFamily:
         self.baseline_idx = next(i for i, s in enumerate(self.slices)
                                  if s.multiple == base_mult)
         self.available = [True] * len(self.slices)
+
+    def __len__(self):
+        return len(self.slices)
+
+    def __getitem__(self, i: int) -> Slice:
+        return self.slices[i]
+
+    @property
+    def baseline(self) -> Slice:
+        return self.slices[self.baseline_idx]
 
     def next_smaller(self, i: int) -> Optional[int]:
         for j in range(i - 1, -1, -1):

@@ -33,6 +33,7 @@ from __future__ import annotations
 import copy
 from collections import deque
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Optional, Sequence
 
 import numpy as np
@@ -138,6 +139,9 @@ def _prepare_run_inputs(demand, carbon, targets, epsilon, state_gb,
 # ---------------------------------------------------------------------------
 
 def _policy_spec(policy) -> tuple:
+    """The decider of `policy`: a device kernel for exactly the stock
+    classes (a subclass may override `decide_batch`), else its own
+    `decide_batch` on the host."""
     if type(policy) is CarbonAgnosticPolicy:
         return ("agnostic",)
     if type(policy) is SuspendResumePolicy:
@@ -145,10 +149,47 @@ def _policy_spec(policy) -> tuple:
     if type(policy) is CarbonContainerPolicy:
         return ("cc", policy.variant, bool(policy.allow_migration),
                 int(policy.min_dwell), float(policy.idle_margin))
-    raise NotImplementedError(
-        f"the torch fleet scan has no decision kernel for "
-        f"{type(policy).__name__}: custom policies are not ported yet "
-        f"(ROADMAP.md Queue 1 item 2), stock policies only")
+    return ("host", policy)
+
+
+class _HostDecider:
+    """A custom policy's `decide_batch`, called on the host once an epoch,
+    as the reference's NumPy fleet backend calls it: slow by design. Each
+    epoch copies the state (slice, suspended, dwell, the rolling demand
+    peak) and the epoch's demand, carbon and budget rows to the host, and
+    the decision's three (N,) arrays (kind, duty, target slice) back to
+    the device; copying them also takes them out of the policy's reach,
+    since a policy may reuse its return buffers (the reference's
+    `decide_batch` does)."""
+
+    def __init__(self, policy, tb: FamilyTables, targets, eps):
+        self.policy = policy
+        self.tb = tb
+        self.targets = targets.reshape(-1).cpu().numpy()
+        self.eps = eps.reshape(-1).cpu().numpy()
+
+    def __call__(self, spec, tb, ts, i0, sus, dwell, peak, d, c, budget):
+        shape = i0.shape
+
+        def host(x, dtype):        # a copy, on the CPU as on the card
+            return np.array(torch.broadcast_to(x, shape).reshape(-1).cpu(),
+                            dtype=dtype)
+        # the fields of the reference's `_StateView`, in its dtypes
+        state = SimpleNamespace(
+            slice_idx=host(i0, np.int64), suspended=host(sus, bool),
+            dwell=host(dwell, np.int64), recent_peak=host(peak, np.float64))
+        # a (T,) carbon row reaches the reference's policy as a float
+        c_h = float(c) if c.dim() == 0 else host(c, np.float64)
+        kind, duty, tgt = self.policy.decide_batch(
+            self.tb, state, host(d, np.float64), c_h, self.targets, self.eps,
+            budget=host(budget, np.float64))
+        dev = i0.device
+        return (torch.tensor(np.asarray(kind), dtype=torch.int64,
+                             device=dev).reshape(shape),
+                torch.tensor(np.asarray(duty), dtype=torch.float64,
+                             device=dev).reshape(shape),
+                torch.tensor(np.asarray(tgt), dtype=torch.int64,
+                             device=dev).reshape(shape))
 
 
 def _nl_chain(tb: FamilyTables, i: int) -> list:
@@ -392,11 +433,16 @@ def _fleet_scan(spec, tb: FamilyTables, mig: MigrationCostModel, dt: float,
     ts = tb.to(dev)
     S = len(tb.multiple)
     T = demand.shape[0]
-    decide = _DECIDERS[spec[0]]
+    if spec[0] == "host":
+        decide = _HostDecider(spec[1], tb, targets, eps)
+    else:
+        decide = _DECIDERS[spec[0]]
     f64 = dict(dtype=torch.float64, device=dev)
-    # only the energy variant's idle-migration rule reads the rolling
-    # demand peak; the window holds the last W-1 demand rows
-    use_peak = spec[0] == "cc" and spec[1] == "energy" and spec[2]
+    # of the stock policies only the energy variant's idle-migration rule
+    # reads the rolling demand peak; a custom policy may read it. The
+    # window holds the last W-1 demand rows
+    use_peak = (spec[0] == "host"
+                or spec[0] == "cc" and spec[1] == "energy" and spec[2])
     window = deque(torch.zeros(demand.shape[1:], **f64)
                    for _ in range(_PEAK_WINDOW - 1)) if use_peak else None
     no_peak = torch.zeros((), **f64)
@@ -563,7 +609,9 @@ def _fleet_scan(spec, tb: FamilyTables, mig: MigrationCostModel, dt: float,
 
 
 class FleetSimulatorTorch:
-    """Advance N containers under one stock policy on a device.
+    """Advance N containers under one policy on a device: a stock policy
+    through its decision kernel, any other through its own `decide_batch`
+    on the host (`_HostDecider`).
 
     Usage::
 

@@ -1,8 +1,24 @@
-"""Simulation settings shared by the sweep entry points (the port's copy
-of `repro.core.simulator.SimConfig`)."""
+"""Trace-driven Carbon Containers simulator (paper §5.3, Figs 10-17), the
+port's copy of `repro.core.simulator` (host Python, the reference's
+operations in the reference's order, so its results are the reference's
+bits).
+
+Drives any policy against a (workload-intensity trace × carbon-intensity
+trace) pair on a slice family, one decision per monitoring interval,
+including migration downtime from the Fig.-7 cost model (both slices
+powered during a stop-and-copy, no work served). `SimConfig` also holds
+the settings of the device sweep (`repro_torch.core.fleet`).
+"""
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Sequence
+
+from repro_torch.carbon.intensity import CarbonIntensityProvider
+from repro_torch.cluster.migration import MigrationCostModel
+from repro_torch.cluster.slices import SliceFamily
+from repro_torch.core.container import ContainerState, PlantModel
+from repro_torch.core.policy import Action
 
 
 @dataclass
@@ -12,3 +28,170 @@ class SimConfig:
     interval_s: float = 300.0
     state_gb: float = 1.0               # migrated state footprint (Fig. 7)
     suspend_releases_slice: bool = True  # cloud-user view: release = no power
+    record_series: bool = False
+
+
+@dataclass
+class SimResult:
+    avg_carbon_rate: float              # g/hr
+    avg_throttle_pct: float             # % of baseline capacity unserved
+    work_done: float
+    work_demanded: float
+    energy_kwh: float
+    migrations: int
+    suspended_frac: float
+    time_on_slice: dict
+    emissions_g: float
+    hours: float
+    series: Optional[dict] = None
+
+    @property
+    def carbon_efficiency(self) -> float:
+        """Work done per kg CO2e (the paper's figure of merit)."""
+        return self.work_done / max(self.emissions_g / 1000.0, 1e-12)
+
+
+def simulate(policy, family: SliceFamily, util_trace: Sequence[float],
+             carbon: CarbonIntensityProvider, cfg: SimConfig,
+             demand_scale: float = 1.0,
+             migration: Optional[MigrationCostModel] = None,
+             carbon_obs=None) -> SimResult:
+    """Run one container over `util_trace` under `policy`.
+
+    `carbon_obs` (optional) splits the signal plane from the billing
+    plane: the policy *decides* on the observed intensity (a provider,
+    or a per-epoch sequence aligned with `util_trace`) while emissions
+    are billed at the true `carbon`."""
+    mig = migration or MigrationCostModel()
+    st = ContainerState(slice_idx=family.baseline_idx)
+    st.dwell = 10**6
+    dt = cfg.interval_s
+    series: dict = {"t": [], "carbon_rate": [], "slice": [], "duty": [],
+                    "util": [], "demand": [], "served": []}
+
+    for n, demand_raw in enumerate(util_trace):
+        t = n * dt
+        demand = float(demand_raw) * demand_scale
+        c = carbon.intensity(t)
+        if carbon_obs is None:
+            c_obs = c
+        elif hasattr(carbon_obs, "intensity"):
+            c_obs = carbon_obs.intensity(t)
+        else:
+            c_obs = float(carbon_obs[n])
+        st.demand_integral += demand * dt
+        st.elapsed_s += dt
+        st.observe_demand(demand)
+
+        # ----- migration in progress: both slices powered, no work --------
+        if st.migrating_s > 0:
+            src = family[st.slice_idx]
+            dst = family[st.migrate_target]
+            power = PlantModel.idle_power(src) + PlantModel.idle_power(dst)
+            _account(st, family, power, c, served=0.0, demand=demand, dt=dt)
+            st.migrating_s -= dt
+            if st.migrating_s <= 0:
+                st.slice_idx = st.migrate_target
+                st.migrate_target = None
+                st.dwell = 0
+            _record(series, cfg, t, power * c / 1000.0, st, 0.0, demand, 0.0)
+            continue
+
+        action: Action = policy.decide(family, st, demand, c_obs,
+                                       cfg.target_rate, cfg.epsilon)
+
+        if action.kind == "suspend":
+            st.suspended = True
+            st.suspended_s += dt
+            if cfg.suspend_releases_slice:
+                power = 0.0
+            else:
+                power = PlantModel.idle_power(family[st.slice_idx])
+            _account(st, family, power, c, served=0.0, demand=demand, dt=dt)
+            _record(series, cfg, t, power * c / 1000.0, st, 0.0, demand, 0.0)
+            st.dwell += 1
+            continue
+
+        if action.kind == "resume":
+            st.suspended = False
+            if action.target_slice is not None:
+                st.slice_idx = action.target_slice
+            st.duty = action.duty
+
+        elif action.kind == "migrate":
+            st.migrate_target = action.target_slice
+            st.duty = action.duty
+            st.migrations += 1
+            bw = max(family[st.slice_idx].state_bw_gbps,
+                     family[action.target_slice].state_bw_gbps)
+            mig_s = mig.stop_and_copy_time(cfg.state_gb, transfer_gbps=bw)
+            src = family[st.slice_idx]
+            dst = family[action.target_slice]
+            down_frac = min(mig_s, dt) / dt
+            p_mig = PlantModel.idle_power(src) + PlantModel.idle_power(dst)
+            if mig_s >= dt:
+                # long migration: whole interval down
+                st.migrating_s = mig_s - dt
+                _account(st, family, p_mig, c, served=0.0, demand=demand, dt=dt)
+                _record(series, cfg, t, p_mig * c / 1000.0, st, 0.0, demand, 0.0)
+                continue
+            # sub-interval migration: serve the rest of it on the destination
+            st.slice_idx = st.migrate_target
+            st.migrate_target = None
+            st.dwell = 0
+            step = PlantModel.run(family[st.slice_idx], st.duty, demand, c)
+            power = down_frac * p_mig + (1 - down_frac) * step.power_w
+            served = (1 - down_frac) * step.served
+            _account(st, family, power, c, served=served, demand=demand, dt=dt)
+            _record(series, cfg, t, power * c / 1000.0, st, step.util,
+                    demand, served)
+            continue
+
+        else:  # stay
+            st.duty = action.duty
+
+        step = PlantModel.run(family[st.slice_idx], st.duty, demand, c)
+        _account(st, family, step.power_w, c, served=step.served,
+                 demand=demand, dt=dt)
+        _record(series, cfg, t, step.carbon_rate, st, step.util, demand,
+                step.served)
+        st.dwell += 1
+
+    hours = st.elapsed_s / 3600.0
+    baseline_cap = family.baseline.multiple
+    thr_pct = 100.0 * st.throttled_integral / max(st.elapsed_s, 1e-9) / baseline_cap
+    return SimResult(
+        avg_carbon_rate=st.emissions_g / max(hours, 1e-12),
+        avg_throttle_pct=thr_pct,
+        work_done=st.work_done,
+        work_demanded=st.demand_integral,
+        energy_kwh=st.energy_wh / 1000.0,
+        migrations=st.migrations,
+        suspended_frac=st.suspended_s / max(st.elapsed_s, 1e-9),
+        time_on_slice={k: v / max(st.elapsed_s, 1e-9)
+                       for k, v in st.time_on_slice_s.items()},
+        emissions_g=st.emissions_g,
+        hours=hours,
+        series=series if cfg.record_series else None,
+    )
+
+
+def _account(st: ContainerState, family, power_w, c, served, demand, dt):
+    st.energy_wh += power_w * dt / 3600.0
+    st.emissions_g += power_w * c / 1000.0 * dt / 3600.0
+    st.work_done += served * dt
+    st.throttled_integral += max(0.0, demand - served) * dt
+    name = "suspended" if st.suspended else family[st.slice_idx].name
+    st.time_on_slice_s[name] = st.time_on_slice_s.get(name, 0.0) + dt
+
+
+def _record(series, cfg, t, rate, st, util, demand, served):
+    if not cfg.record_series:
+        return
+    series["t"].append(t)
+    series["carbon_rate"].append(rate)
+    series["slice"].append("susp" if st.suspended else st.slice_idx)
+    series["duty"].append(st.duty)
+    series["util"].append(util)
+    series["demand"].append(demand)
+    series["served"].append(served)

@@ -5,8 +5,9 @@ energy supply (solar, a battery, the event-perturbed grid) turned into
 two signals the demand side consumes, a per-region *virtual power cap*
 fraction and the *effective* carbon intensity of the delivered mix.
 `supply_torch` runs the same supply step on a device, folded into the
-fleet scan. The reference's scenario matrix (`repro.energy.scenarios`)
-is not ported yet.
+fleet scan. `scenarios` is the port's scenario stress matrix (import it
+as `repro_torch.energy.scenarios`; it runs the sweep, which imports this
+package).
 """
 from repro_torch.energy.supply import (BatteryConfig, EnergyConfig,
                                        EnergySpec, GridEventConfig,

@@ -3,7 +3,8 @@ RG-LRU kernels against their plain versions (the tensor-core routes at
 the edges of their tiles too), card-vs-CPU plan equality, the layered
 sweep card against CPU (`devmath`, the traffic, energy and
 elasticity steps, the faulted plan, the rows with all four layers and
-with traffic and energy folded into the scan) and card-vs-CPU serving
+with traffic and energy folded into the scan), the scenario matrix and a
+custom policy's host decisions card against CPU, and card-vs-CPU serving
 (SmolLM, Mamba-2, RecurrentGemma). They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
@@ -430,3 +431,53 @@ def test_recurrent_serving_on_card_equals_cpu(cuda, arch, n_layers, kernel,
         a, ca = model.decode(card_params, ca, tok.to(cuda))
         b, cb = model.decode(params, cb, tok)
         torch.testing.assert_close(a.cpu(), b, atol=1e-3, rtol=1e-3)
+
+
+SCENARIOS = ("baseline", "fleet_churn", "grid_outage", "intensity_shock",
+             "migration_failures", "stragglers", "demand_burst",
+             "telemetry_blackout", "flapping_feed", "migration_storm")
+
+
+@pytest.mark.parametrize("name", SCENARIOS)
+def test_scenario_on_card_equals_cpu(cuda, name):
+    """Each cell of the scenario matrix at T = 64, 8 traces: the energy
+    step folded into the fleet scan on the card, held against the CPU;
+    the invariants hold and the rows are the CPU's bit for bit."""
+    from repro_torch.cluster.placement_kernel import admission_rounds
+    from repro_torch.energy import scenarios as sc
+    cell = next(s for s in sc.build_matrix(64) if s.name == name)
+    before = admission_rounds.launches
+    out = sc.run_scenario(cell, T=64, n_tr=8, targets=(40.0,),
+                          devices=("cuda", "cpu"))
+    assert admission_rounds.launches == before + 64
+    assert out["ok"], out["checks"]
+    assert out["checks"]["backend_parity"] == 0.0
+    for a, b in zip(out["results"]["cuda"], out["results"]["cpu"]):
+        assert a == b
+
+
+@pytest.mark.parametrize("base", ["agnostic", "cc"])
+def test_custom_policy_on_card_equals_cpu(cuda, base):
+    """A subclassed stock policy runs its own `decide_batch` on the host
+    once an epoch: the same rows on the card as on the CPU, and as the
+    stock kernel's on the card."""
+    from repro_torch.cluster.slices import paper_family
+    from repro_torch.core import policy
+    from repro_torch.core.spec import SweepSpec
+    from repro_torch.launch.sweep_scale import engine
+    from repro_torch.workload.azure_like import sample_population_matrix
+    stock = {"agnostic": policy.CarbonAgnosticPolicy,
+             "cc": policy.CarbonContainerPolicy}[base]
+
+    class Custom(stock):
+        pass
+    demand = sample_population_matrix(200, days=1, seed=1)
+    _, eng = engine(200)
+
+    def run(pol, device):
+        return SweepSpec(policies={"x": pol}, family=paper_family(),
+                         traces=demand, targets=[30.0, 60.0], placement=eng,
+                         device=device).run()
+    card = run(Custom, cuda)
+    assert card.rows == run(Custom, "cpu").rows
+    assert card.parity(run(stock, cuda)) <= 1e-9

@@ -146,8 +146,12 @@ def test_torch_fleet_rejects_what_is_not_ported():
 
     sim = FleetSimulatorTorch(paper_family())
     carbon = TraceProvider.for_region("PL", hours=24, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.run(Custom(), np.ones((4, 2)), carbon, 45.0, device="cpu")
+    # a custom policy is ported: it runs its own decide_batch on the host
+    # and is no longer rejected
+    got = sim.run(Custom(), np.ones((4, 2)), carbon, 45.0, device="cpu")
+    want = sim.run(policy.CarbonContainerPolicy(), np.ones((4, 2)), carbon,
+                   45.0, device="cpu")
+    assert np.array_equal(got.emissions_g, want.emissions_g)
     # the layer inputs are ported: what a run cannot take raises as in
     # the reference
     for kw in ("traffic", "energy"):

@@ -274,3 +274,76 @@ def test_elasticity_layer_is_bit_identical(budget, shape):
                    ref_el.shaped_budget_series(carbon.mean(axis=1),
                                                ref_el.ElasticityConfig(**kw),
                                                300.0))
+
+
+def test_power_model_is_bit_identical():
+    from repro.power.model import LinearPowerModel as RefLPM
+    from repro.power.model import calibrate_linear as ref_calibrate
+    from repro.power.model import component_power_sweep as ref_sweep
+    from repro_torch.power.model import (LinearPowerModel, calibrate_linear,
+                                         component_power_sweep)
+    rng = np.random.default_rng(2)
+    for base, peak in ((100.0, 200.0), (25.0, 50.0), (80.0, 80.0),
+                       (90.0, 60.0)):
+        m, ref = LinearPowerModel(base, peak), RefLPM(base, peak)
+        for x in np.concatenate([rng.random(50) * 1.6 - 0.3,
+                                 rng.random(50) * 300.0, [base, peak]]):
+            assert m.power(float(x)) == ref.power(float(x))
+            assert m.util_for_power(float(x)) == ref.util_for_power(float(x))
+        if peak >= base:
+            assert component_power_sweep(m, seed=3) == ref_sweep(ref, seed=3)
+    u = rng.random(40)
+    w = 100.0 + 100.0 * u + rng.normal(0.0, 2.0, 40)
+    got, r2 = calibrate_linear(u, w)
+    want, ref_r2 = ref_calibrate(u, w)
+    assert (got.base_w, got.peak_w, r2) == (want.base_w, want.peak_w, ref_r2)
+
+
+@pytest.mark.parametrize("region", ["PL", "CAISO"])
+def test_scalar_intensity_and_trace_cov_are_bit_identical(region):
+    from repro.carbon.intensity import ConstantProvider as RefCP
+    from repro.carbon.traces import synth_trace as ref_synth
+    from repro.carbon.traces import trace_cov as ref_cov
+    from repro_torch.carbon.traces import trace_cov
+    got = TraceProvider(TraceProvider.for_region(region, hours=30,
+                                                 seed=2).hourly, start_s=90.0)
+    ref = RefTP(RefTP.for_region(region, hours=30, seed=2).hourly,
+                start_s=90.0)
+    for t in np.concatenate([np.arange(0, 200_000, 299.0), [-4000.0]]):
+        assert got.intensity(float(t)) == ref.intensity(float(t))
+        assert type(got.intensity(float(t))) is float
+    assert ConstantProvider(7.5).intensity(3.0) == RefCP(7.5).intensity(3.0)
+    trace = ref_synth(region, 24 * 7, seed=4)
+    assert trace_cov(trace) == ref_cov(trace)
+
+
+@pytest.mark.parametrize("fam,ref_fam", [(paper_family, ref_paper_family),
+                                         (tpu_v5e_family, ref_tpu_family)])
+def test_slice_family_protocol_is_identical(fam, ref_fam):
+    got, ref = fam(), ref_fam()
+    assert len(got) == len(ref)
+    for i in range(len(got)):
+        a, b = got[i], ref[i]
+        assert (a.name, a.multiple, a.capacity(), a.chips, a.state_bw_gbps,
+                a.power.base_w, a.power.peak_w) == (
+            b.name, b.multiple, b.capacity(), b.chips, b.state_bw_gbps,
+            b.power.base_w, b.power.peak_w)
+    assert got.baseline.name == ref.baseline.name
+    got.available[0] = ref.available[0] = False
+    assert [got.next_smaller(i) for i in range(len(got))] == [
+        ref.next_smaller(i) for i in range(len(ref))]
+    assert got.smallest() == ref.smallest()
+
+
+def test_scalar_stop_and_copy_time_is_bit_identical():
+    mig, ref = MigrationCostModel(restore_extra_s=1.5), RefMig(
+        restore_extra_s=1.5)
+    for sgb in (0.0, 0.25, 1.0, 7.5):
+        assert mig.suspend_time(sgb) == ref.suspend_time(sgb)
+        assert mig.resume_time(sgb) == ref.resume_time(sgb)
+        for bw in (0.0, 0.25, 2.0, 64.0):
+            for comp in (True, False):
+                assert mig.stop_and_copy_time(
+                    sgb, compressed=comp, transfer_gbps=bw) == \
+                    ref.stop_and_copy_time(sgb, compressed=comp,
+                                           transfer_gbps=bw)
