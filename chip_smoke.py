@@ -26,16 +26,20 @@ raising on failure so the run exits non-zero:
      and 5e-3 (h_final), with a case whose masked triangle overflows,
      tile-edge cases and x, b, c as the mixer's strided views; the
      RG-LRU scan bit-equal on its ring route and within 1e-5 / 3e-2 (y)
-     and 1e-4 / 1e-2 (h) on its column route. Each case
+     and 1e-4 / 1e-2 (h) on its column route. Flash is also checked and
+     timed at each serving path's prefill shape: RecurrentGemma's, OLMoE's
+     (16:16 heads of 128), DBRX's (48:8), Whisper-base's encoder
+     (non-causal over 1,500 frames) and cross-attention (4 rows against
+     1,500 keys), all Dh 64 or more on the wgmma route. Each case
      records its route and its margin (the share of the allclose bar its
      worst element uses). Each kernel is timed with CUDA events at its
      main path's shape, beside one PyTorch library call where one
      computes the same function, and the least time the card could take
      (`bound_ms`);
-  3b. bf16 through real layers: phi4-mini and mamba2 at their published
-     widths, 2 layers, prefill logits with the kernels against the plain
-     versions (``attn_impl``/``ssm_impl`` "ref"), within 2e-2 of the max
-     |logit|;
+  3b. bf16 through real layers: phi4-mini, mamba2, olmoe-1b-7b and
+     dbrx-132b at their published widths, 2 layers, prefill logits with
+     the kernels against the plain versions (``attn_impl``/``ssm_impl``
+     "ref"), within 2e-2 of the max |logit|;
   4. sweep cross-check: the placed sweep at 5,000 traces x 10 targets x
      288 epochs on the card and on the CPU: rows within 1e-9, plans equal;
   5. sweep at full width: the placed sweep of
@@ -85,12 +89,19 @@ raising on failure so the run exits non-zero:
      phi4-mini-3.8b at 2 layers (128-token prompts), mamba2-2.7b at 2
      layers (256), recurrentgemma-9b at 4 layers, one superlayer and one
      trailing recurrent block (256; its window cut to 128, so that it
-     bites in the prefill and the ring wraps in decode);
+     bites in the prefill and the ring wraps in decode), olmoe-1b-7b at 2
+     layers (64; every routing's expert ids equal on both, with the
+     smallest top-k / top-(k+1) probability gap reported), whisper-base
+     whole (2 clips of 1,500 seeded random frames, 4-token prompts);
   7. serving at full width, one engine at a time: phi4-mini-3.8b,
-     mamba2-2.7b and recurrentgemma-9b with seeded random weights on the
-     card, `ServeEngine.generate` of 32 greedy tokens after 4 prompts of
-     2,048 random tokens, then a torch.profiler breakdown of one prefill
-     and of one decode step;
+     mamba2-2.7b, recurrentgemma-9b, olmoe-1b-7b and dbrx-132b (at 2 of
+     its 40 layers: 132 B parameters do not fit one 80 GB card) with
+     seeded random weights on the card, `ServeEngine.generate` of 32
+     greedy tokens after 4 prompts of 2,048 random tokens, and
+     whisper-base on 8 clips of 1,500 (zero) frames with 4-token prompts;
+     then a torch.profiler breakdown of one prefill and of one decode
+     step; the MoE models' first-layer router drops, Whisper's encoder
+     frames per second; peak memory under 80 GB;
   7b. carbon-aware serving on the loaded phi4-mini engine
      (`repro_torch.launch.carbon_serve`): the decode capacity calibrated
      on the card, the 96-interval control loop, and the duty it chose
@@ -102,8 +113,9 @@ and 7b are the main paths: every kernel's launch counter is set to 0
 just before each path and read just after; each path must have launched
 exactly its kernels (T admission launches in each sweep, one per epoch;
 per prefill 32 flash launches for phi4-mini, 64 SSD launches for
-Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma; two
-phi4-mini prefills in 7b) and no others, every flash launch on the wgmma
+Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma, 16 flash
+launches for OLMoE, 2 for DBRX, 18 for Whisper; two phi4-mini prefills
+in 7b) and no others, every flash launch on the wgmma
 route, every SSD launch on the mma_sync route and every RG-LRU launch on
 the ring route.
 
@@ -128,7 +140,7 @@ REGIONS = ("PL", "NL", "CAISO")
 N_TARGETS = 10
 FULL_TRACES = 100_000           # x N_TARGETS = 1,000,000 containers
 LAYERED_CROSS_TRACES = 2_000    # the layered card-vs-CPU check
-SERVE_BATCH, SERVE_PROMPT, SERVE_NEW_TOKENS = 4, 2048, 32
+SERVE_PROMPT, SERVE_NEW_TOKENS = 2048, 32
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores, same
 FP32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
@@ -335,7 +347,8 @@ def admission_phase(dev):
 # kernel's 64-key tiles and 128-row blocks (Sq, Skv not multiples of 64,
 # Sq != Skv, a window ending inside a tile, G = 3 and 16, Dh 64 / 128 /
 # 256), then the carbon-serve calibration prefill (phi4-mini's heads, 4 x
-# 8 tokens); the main paths' shapes come last
+# 8 tokens) and Whisper's card-vs-CPU shapes (2 clips: the encoder's 1,500
+# frames, the cross-attention of 4 rows); the main paths' shapes come last
 FLASH_CASES = [(2, 128, 128, 4, 2, 32, True, 0),
                (1, 64, 64, 2, 1, 16, True, 24),
                (2, 128, 128, 4, 4, 64, False, 0),
@@ -348,9 +361,19 @@ FLASH_CASES = [(2, 128, 128, 4, 2, 32, True, 0),
                (1, 200, 1000, 6, 2, 128, False, 0),
                (1, 1000, 200, 3, 1, 64, True, 0),
                (2, 1000, 1000, 8, 8, 256, False, 300),
-               (4, 8, 8, 24, 8, 128, True, 0)]
+               (4, 8, 8, 24, 8, 128, True, 0),
+               (2, 1500, 1500, 8, 8, 64, False, 0),
+               (2, 4, 1500, 8, 8, 64, False, 0)]
 FLASH_MAIN = (4, 2048, 2048, 24, 8, 128, True, 0)   # phi4-mini prefill, bf16
-FLASH_RG = (4, 2048, 2048, 16, 1, 256, True, 2048)  # RecurrentGemma prefill
+# the other main paths' prefill shapes, bf16: each checked against the
+# plain version and timed beside its bound and SDPA
+FLASH_SHAPES = {
+    "recurrentgemma": (4, 2048, 2048, 16, 1, 256, True, 2048),
+    "olmoe": (4, 2048, 2048, 16, 16, 128, True, 0),
+    "dbrx": (4, 2048, 2048, 48, 8, 128, True, 0),
+    "whisper_encoder": (8, 1500, 1500, 8, 8, 64, False, 0),
+    "whisper_cross": (8, 4, 1500, 8, 8, 64, False, 0),
+}
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
@@ -369,8 +392,9 @@ def flash_phase(dev):
                                                      flash_attention_torch,
                                                      route)
     checked = []
+    main = [FLASH_MAIN, *FLASH_SHAPES.values()]
     runs = [(c, dt) for c in FLASH_CASES for dt in FLASH_TOL]
-    runs += [(FLASH_MAIN, torch.bfloat16), (FLASH_RG, torch.bfloat16)]
+    runs += [(c, torch.bfloat16) for c in main]
     for i, (case, dtype) in enumerate(runs):
         causal, window = case[-2], case[-1]
         q, k, v = _qkv(case, dtype, dev, seed=i)
@@ -388,47 +412,52 @@ def flash_phase(dev):
                         "margin": _margin(got, want, tol)})
 
     def timed(case, seed):
-        B, S, _, Hq, Hkv, Dh, causal, window = case
+        B, Sq, Skv, Hq, Hkv, Dh, causal, window = case
         q, k, v = _qkv(case, torch.bfloat16, dev, seed=seed)
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        if 0 < window < S:
-            raise ValueError("the library yardstick is causal attention "
-                             "without a window that bites")
-        sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                              enable_gqa=True).transpose(1, 2)
-        library_err = float((sdpa.float() - flash_attention_torch(
-            q, k, v).float()).abs().max())
-        pairs = S * (S + 1) // 2                   # causal (q, kv) pairs
+        if 0 < window < Skv or (causal and Sq != Skv):
+            raise ValueError("the library yardstick is attention without a "
+                             "window that bites, causal only for Sq = Skv")
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=True)
+        library_err = float((library().transpose(1, 2).float()
+                             - flash_attention_torch(q, k, v, causal=causal)
+                             .float()).abs().max())
+        # (q, kv) pairs: the causal triangle, else every pair
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
         record = _kernel_record(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:78",
             lambda: flash_attention(q, k, v, causal=causal, window=window),
             lambda: flash_attention_torch(q, k, v, causal=causal,
                                           window=window),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=True),
-            nbytes=2 * (2 * B * S * Hq * Dh + 2 * B * S * Hkv * Dh),
+            library,
+            nbytes=2 * (2 * B * Sq * Hq * Dh + 2 * B * Skv * Hkv * Dh),
             flops=4 * B * Hq * Dh * pairs, peak_flops=BF16_FLOP_PER_S,
             checked=checked,
             max_abs_err=max(c["max_abs_err"] for c in checked),
             tolerance="2e-5 float32, 2e-2 bfloat16 (abs and rel)",
             kernel_head_start=2_000_000, plain_head_start=20_000_000)
-        record["shape"] = {"B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "Dh": Dh,
-                           "dtype": "bfloat16", "causal": causal,
-                           "window": window}
+        record["shape"] = {"B": B, "Sq": Sq, "Skv": Skv, "Hq": Hq,
+                           "Hkv": Hkv, "Dh": Dh, "dtype": "bfloat16",
+                           "causal": causal, "window": window}
         record["library"] = ("torch.nn.functional."
-                             "scaled_dot_product_attention(is_causal=True, "
-                             "enable_gqa=True)")
+                             f"scaled_dot_product_attention(is_causal="
+                             f"{causal}, enable_gqa=True)")
         record["library_max_abs_err"] = library_err
         record["kernel_route"] = route(torch.bfloat16, Dh)
         record["max_margin"] = max(c["margin"] for c in checked)
         return record
 
-    record = timed(FLASH_MAIN, seed=len(runs) - 2)
-    rg = timed(FLASH_RG, seed=len(runs) - 1)
-    record["recurrentgemma"] = {k: rg[k] for k in (
-        "shape", "kernel_route", "ms", "plain_ms", "library_ms", "bound_ms",
-        "bound_by", "bytes", "flops", "library_max_abs_err")}
+    first = len(runs) - len(main)
+    record = timed(FLASH_MAIN, seed=first)
+    for j, (name, case) in enumerate(FLASH_SHAPES.items(), start=1):
+        other = timed(case, seed=first + j)
+        record[name] = {k: other[k] for k in (
+            "shape", "kernel_route", "ms", "plain_ms", "library_ms",
+            "bound_ms", "bound_by", "bytes", "flops", "library_max_abs_err")}
     return record
 
 
@@ -1332,58 +1361,109 @@ def _serving_model(arch, dtype=None, **overrides):
     return get_model(cfg)
 
 
-# arch, depth and overrides of the card-vs-CPU checks (float32, the
-# published widths): phi4-mini and Mamba-2 at 2 layers; RecurrentGemma
-# at one superlayer plus one trailing recurrent block, so both scan
-# groups run, with its window cut to 128 so that it bites in the
-# prefill's flash launch and the ring wraps in decode
+# arch, prompt length and overrides of the card-vs-CPU checks (float32,
+# the published widths): phi4-mini and Mamba-2 at 2 layers;
+# RecurrentGemma at one superlayer plus one trailing recurrent block, so
+# both scan groups run, with its window cut to 128 so that it bites in
+# the prefill's flash launch and the ring wraps in decode; OLMoE at 2
+# layers (its routing ids held exactly); Whisper-base whole, on 2 clips
+# of 1,500 seeded random frames
 SERVE_CROSS = [("phi4-mini-3.8b", 128, {"n_layers": 2}),
                ("mamba2-2.7b", 256, {"n_layers": 2}),
                ("recurrentgemma-9b", 256, {"n_layers": 4,
-                                           "local_window": 128})]
+                                           "local_window": 128}),
+               ("olmoe-1b-7b", 64, {"n_layers": 2}),
+               ("whisper-base", 4, {})]
+
+
+class _RoutingLog:
+    """Records every MoE routing (`models.moe._route`) while active:
+    the expert ids and the gap between the k-th and the (k+1)-th
+    probability of each token, by device."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.route = moe, moe._route
+        self.ids = {"cuda": [], "cpu": []}
+        self.gaps = {"cuda": [], "cpu": []}
+
+        def logged(cfg, router, x_flat):
+            weights, ids, probs = self.route(cfg, router, x_flat)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            dev = x_flat.device.type
+            self.ids[dev].append(ids.cpu())
+            self.gaps[dev].append(float((top[:, -2] - top[:, -1]).min()))
+            return weights, ids, probs
+        moe._route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.route
 
 
 def serving_cross_check(dev, arch, prompt_len, overrides):
     """The same weights and tokens on the card and on the CPU in
     float32: prefill, then 8 decode steps fed the CPU's greedy tokens;
-    every step's logits within 1e-3."""
+    every step's logits within 1e-3; for an MoE every routing's expert
+    ids equal."""
     from repro_torch.models.params import tree_map
     model = _serving_model(arch, dtype="float32", **overrides)
+    cfg = model.cfg
     cpu_params = model.init(SEED, device="cpu")
     params = tree_map(lambda t: t.to(dev), cpu_params)
-    prompts = np.random.default_rng(SEED).integers(
-        0, model.cfg.vocab_size, (2, prompt_len))
-    tokens = torch.as_tensor(prompts)
-    _zero_counts()
-    a, ca = model.prefill(params, {"tokens": tokens.to(dev)},
-                          pad_to=prompt_len + 8)
-    launches = {k: v for k, v in _read_counts().items() if v}
-    b, cb = model.prefill(cpu_params, {"tokens": tokens},
-                          pad_to=prompt_len + 8)
-    errs, agree, steps = [], 0, 0
-    for step in range(9):
-        a = a.cpu()
-        err = float((a - b).abs().max())
-        if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
-            raise AssertionError(f"{arch}: card vs CPU logits differ at step "
-                                 f"{step}: max abs {err}")
-        errs.append(err)
-        tok = torch.argmax(b, -1)
-        agree += int((torch.argmax(a, -1) == tok).sum())
-        steps += tok.numel()
-        if step < 8:
-            a, ca = model.decode(params, ca, tok.to(dev))
-            b, cb = model.decode(cpu_params, cb, tok)
-    return {"arch": arch, **overrides, "dtype": "float32", "batch": 2,
-            "prompt_len": prompt_len, "decode_steps": 8,
-            "prefill_launches": launches, "max_abs_err": max(errs),
-            "errs": errs, "greedy_agree": agree, "greedy_total": steps}
+    rng = np.random.default_rng(SEED)
+    batch = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab_size, (2, prompt_len)))}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.as_tensor(rng.normal(
+            size=(2, cfg.enc_seq, cfg.d_model)), dtype=torch.float32)
+    with _RoutingLog() as routing:
+        _zero_counts()
+        a, ca = model.prefill(params, {k: v.to(dev) for k, v in
+                                       batch.items()}, pad_to=prompt_len + 8)
+        launches = {k: v for k, v in _read_counts().items() if v}
+        b, cb = model.prefill(cpu_params, batch, pad_to=prompt_len + 8)
+        errs, agree, steps = [], 0, 0
+        for step in range(9):
+            a = a.cpu()
+            err = float((a - b).abs().max())
+            if not torch.allclose(a, b, atol=1e-3, rtol=1e-3):
+                raise AssertionError(f"{arch}: card vs CPU logits differ at "
+                                     f"step {step}: max abs {err}")
+            errs.append(err)
+            tok = torch.argmax(b, -1)
+            agree += int((torch.argmax(a, -1) == tok).sum())
+            steps += tok.numel()
+            if step < 8:
+                a, ca = model.decode(params, ca, tok.to(dev))
+                b, cb = model.decode(cpu_params, cb, tok)
+    out = {"arch": arch, **overrides, "dtype": "float32", "batch": 2,
+           "prompt_len": prompt_len, "decode_steps": 8,
+           "prefill_launches": launches, "max_abs_err": max(errs),
+           "errs": errs, "greedy_agree": agree, "greedy_total": steps}
+    if cfg.family == "moe":
+        card, cpu = routing.ids["cuda"], routing.ids["cpu"]
+        same = sum(int((x == y).sum()) for x, y in zip(card, cpu))
+        total = sum(y.numel() for y in cpu)
+        if len(card) != len(cpu) or len(cpu) != 9 * cfg.n_layers or (
+                same != total):
+            raise AssertionError(f"{arch}: routing ids agree in {same} of "
+                                 f"{total} ({len(card)} card, {len(cpu)} "
+                                 f"CPU routings)")
+        out.update(routing_ids_equal=same, routing_ids_total=total,
+                   min_topk_gap=min(routing.gaps["cpu"]),
+                   min_topk_gap_card=min(routing.gaps["cuda"]))
+    if cfg.family == "encdec":
+        out["frames"] = list(batch["frames"].shape)
+    return out
 
 
 # arch, the config switch that sends its kernel's layer to the plain
 # version: the bf16 kernels-vs-plain prefill check at the published widths
 BF16_CHECK = [("phi4-mini-3.8b", "attn_impl", "flash_attention"),
-              ("mamba2-2.7b", "ssm_impl", "ssd_scan")]
+              ("mamba2-2.7b", "ssm_impl", "ssd_scan"),
+              ("olmoe-1b-7b", "attn_impl", "flash_attention"),
+              ("dbrx-132b", "attn_impl", "flash_attention")]
 BF16_LAYERS, BF16_BATCH = 2, 2
 
 
@@ -1423,26 +1503,51 @@ def kernels_vs_plain_bf16(dev, arch, switch, kernel):
             "tol": "2e-2 * max|logit|"}
 
 
-# arch, the kernel launches of one prefill (one generate) at full width;
-# every flash and SSD launch there takes the tensor-core route, every
-# RG-LRU launch the TMA ring
-SERVE_FULL = [("phi4-mini-3.8b", {"flash_attention": 32}),
-              ("mamba2-2.7b", {"ssd_scan": 64}),
-              ("recurrentgemma-9b", {"rglru_scan": 26,
-                                     "flash_attention": 12})]
+# arch, depth override, batch, prompt length, warm-up prompt length and
+# the kernel launches of one prefill (one generate) at full width; every
+# flash and SSD launch there takes the tensor-core route, every RG-LRU
+# launch the TMA ring. DBRX (132 B parameters) does not fit one 80 GB
+# card: it serves at its published widths and 2 of its 40 layers.
+# Whisper-base serves 8 clips of 1,500 (zero) frames and 4-token decoder
+# prompts: 6 encoder, 6 decoder and 6 cross-attention launches
+SERVE_FULL = [("phi4-mini-3.8b", {}, 4, 2048, 128, {"flash_attention": 32}),
+              ("mamba2-2.7b", {}, 4, 2048, 256, {"ssd_scan": 64}),
+              ("recurrentgemma-9b", {}, 4, 2048, 256,
+               {"rglru_scan": 26, "flash_attention": 12}),
+              ("olmoe-1b-7b", {}, 4, 2048, 256, {"flash_attention": 16}),
+              ("dbrx-132b", {"n_layers": 2}, 4, 2048, 256,
+               {"flash_attention": 2}),
+              ("whisper-base", {}, 8, 4, 2, {"flash_attention": 18})]
 MAIN_ROUTES = {"flash_attention": "wgmma", "ssd_scan": "mma_sync",
                "rglru_scan": "ring"}
 CARBON_SERVE_ARCH = "phi4-mini-3.8b"    # the carbon-aware serving loop
+DEVICE_BYTES = 80e9                     # one card's memory, the 80 GB
 
 
-def serving_full_width(dev, arch, expected, warmup_len, then=None):
-    """`ServeEngine.generate` of 32 greedy tokens after 4 prompts of
-    2,048 random tokens at the published widths and depth, seeded random
-    weights; then a torch.profiler breakdown of one prefill and one
-    decode step. `then(engine)`, where given, runs last on the same
-    engine; its result is returned beside."""
+def _first_layer_aux(cfg, params, batch):
+    """The first layer's MoE aux (``router_dropped``, ``lb_loss``) at the
+    prefill's input: the layer run alone on the embedded prompts."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    tokens = batch["tokens"]
+    x = T.embed_tokens(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    lp = T.layer(T.run_layers(cfg, params), 0)
+    _, aux = T._layer_body(cfg, x, lp, positions, lambda q, k, v: L.attention(
+        q, k, v, causal=True, impl=cfg.attn_impl))
+    return {k: float(v) for k, v in aux.items()}
+
+
+def serving_full_width(dev, arch, overrides, batch_size, prompt_len,
+                       warmup_len, expected, then=None):
+    """`ServeEngine.generate` of 32 greedy tokens after `batch_size`
+    prompts of `prompt_len` random tokens at the published widths (and
+    depth, unless `overrides` cut it), seeded random weights; then a
+    torch.profiler breakdown of one prefill and one decode step.
+    `then(engine)`, where given, runs last on the same engine; its result
+    is returned beside."""
     from repro_torch.serve.engine import ServeEngine, throughput_tokens_per_s
-    model = _serving_model(arch)
+    model = _serving_model(arch, **overrides)
     cfg = model.cfg
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -1451,7 +1556,7 @@ def serving_full_width(dev, arch, expected, warmup_len, then=None):
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
-    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    prompts = rng.integers(0, cfg.vocab_size, (batch_size, prompt_len))
     engine.generate(prompts[:, :warmup_len], 2)    # warm-up (cuBLAS, caches)
     engine.stats = dict.fromkeys(engine.stats, 0)
 
@@ -1469,23 +1574,24 @@ def serving_full_width(dev, arch, expected, warmup_len, then=None):
             raise AssertionError(f"{arch}: {name} routes {routes[name]}, "
                                  f"expected all {want[name]} on {path}")
     toks = out["tokens"]
-    if toks.shape != (SERVE_BATCH, SERVE_NEW_TOKENS) or toks.min() < 0 or (
+    if toks.shape != (batch_size, SERVE_NEW_TOKENS) or toks.min() < 0 or (
             toks.max() >= cfg.vocab_size):
         raise AssertionError(f"{arch}: generated tokens of shape "
                              f"{toks.shape} in [{toks.min()}, {toks.max()}]")
     peak = torch.cuda.max_memory_allocated(dev)
-    if peak >= torch.cuda.get_device_properties(dev).total_memory:
+    if peak >= min(torch.cuda.get_device_properties(dev).total_memory,
+                   DEVICE_BYTES):
         raise AssertionError(f"{arch}: peak memory {peak} B")
     tp = throughput_tokens_per_s(out["stats"])
 
     # where the time goes: one prefill and one decode step, profiled
     params = engine.prepared_params()
-    batch = {"tokens": torch.as_tensor(prompts, device=dev)}
+    batch = engine.prefill_batch(prompts)
     res = {}
     pre = _device_profile(lambda: res.update(zip(("logits", "cache"), (
-        model.prefill(params, batch, pad_to=SERVE_PROMPT + 1)))))
+        model.prefill(params, batch, pad_to=prompt_len + 1)))))
     logits = res["logits"]
-    if tuple(logits.shape) != (SERVE_BATCH, cfg.vocab_size) or not bool(
+    if tuple(logits.shape) != (batch_size, cfg.vocab_size) or not bool(
             torch.isfinite(logits).all()):
         raise AssertionError(f"{arch}: prefill logits are not finite of "
                              f"shape (B, V)")
@@ -1493,15 +1599,20 @@ def serving_full_width(dev, arch, expected, warmup_len, then=None):
         params, res["cache"], torch.argmax(logits, -1)))
     profile = {name: dict(zip(("wall_s", "device_s", "top"), prof))
                for name, prof in (("prefill", pre), ("decode_step", dec))}
-    record = {"arch": arch, "params": model.param_count(),
-              "batch": SERVE_BATCH, "prompt_len": SERVE_PROMPT,
+    record = {"arch": arch, **overrides, "params": model.param_count(),
+              "batch": batch_size, "prompt_len": prompt_len,
               "new_tokens": SERVE_NEW_TOKENS, "load_s": load_s,
               "prefill_s": out["stats"]["prefill_s"],
               "decode_s": out["stats"]["decode_s"], **tp,
               "max_memory_allocated": peak, "launches": launches,
               "route_launches": routes, "tokens_head": toks[:, :8].tolist(),
               "profile": profile}
-    del res, logits
+    if cfg.family == "moe":
+        record["layer0_aux"] = _first_layer_aux(cfg, params, batch)
+    if cfg.family == "encdec":
+        record["enc_frames_per_s"] = (batch_size * cfg.enc_seq
+                                      / out["stats"]["prefill_s"])
+    del res, logits, params, batch
     return (then(engine) if then is not None else None), record
 
 
@@ -1566,11 +1677,10 @@ def main():
                    for arch, n, ov in SERVE_CROSS]
     _free_device_memory()
     serve, cserve = [], None
-    for arch, expected in SERVE_FULL:
-        warmup = 128 if arch == "phi4-mini-3.8b" else 256
+    for arch, *shape in SERVE_FULL:
         then = (lambda e: carbon_serve(e, dev)) if arch == CARBON_SERVE_ARCH \
             else None
-        follow, record = serving_full_width(dev, arch, expected, warmup, then)
+        follow, record = serving_full_width(dev, arch, *shape, then=then)
         serve.append(record)
         cserve = follow if follow is not None else cserve
         _free_device_memory()

@@ -3,13 +3,17 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \
       --smoke false --batch 4 --prompt-len 2048 --new-tokens 32 [--device cuda]
 
-``--arch``: a dense, Mamba-2 or RecurrentGemma architecture
-(`repro_torch.configs`). ``--smoke true`` (the default) serves its
-reduced config; ``--device`` defaults to ``cuda`` and fails without a
-card. Prints the kernel launches of the run (none on the CPU).
+``--arch``: any architecture of `repro_torch.configs` (dense, MoE,
+Mamba-2, RecurrentGemma, Whisper; an encoder-decoder is fed zero
+frames). ``--smoke true`` (the default) serves its reduced config;
+``--smoke false`` the published one, where ``--layers N`` cuts the depth
+(dbrx-132b does not fit one 80 GB card at its 40 layers; it serves at
+2). ``--device`` defaults to ``cuda`` and fails without a card. Prints
+the kernel launches of the run (none on the CPU).
 """
 from __future__ import annotations
 
+import dataclasses
 import sys
 
 import numpy as np
@@ -27,6 +31,8 @@ def main(argv=None) -> int:
     args = parse_cli(argv if argv is not None else sys.argv[1:])
     spec = get_arch(args.get("arch", "smollm-135m"))
     cfg = spec.smoke if args.get("smoke", "true") != "false" else spec.full
+    if "layers" in args:
+        cfg = dataclasses.replace(cfg, n_layers=int(args["layers"]))
     engine = ServeEngine(get_model(cfg), device=args.get("device", "cuda"))
     engine.load(int(args.get("seed", 0)))
     B = int(args.get("batch", 4))

@@ -1,38 +1,34 @@
 """Model facade (the reference's `src/repro/models/api.py`) for the
-dense, ssm (Mamba-2) and hybrid (RecurrentGemma) families:
+five families: dense and MoE (`transformer`), ssm (Mamba-2), hybrid
+(RecurrentGemma) and encdec (Whisper):
 
     m = get_model(cfg)
     params = m.init(seed, device="cuda")
     logits, cache = m.prefill(params, {"tokens": tokens}, pad_to=n)
     logits, cache = m.decode(params, cache, tokens)
 
-The MoE and encoder-decoder families raise `NotImplementedError` naming
-the ROADMAP item that brings them.
+An encdec prefill also takes ``batch["frames"]`` (B, enc_seq, d_model).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 from repro_torch.config import DENSE, ENCDEC, HYBRID, MOE, SSM, ModelConfig
-from repro_torch.models import mamba2, rglru, transformer
+from repro_torch.models import encdec, mamba2, rglru, transformer
 from repro_torch.models import params as PT
 
-_FAMILY_MODULES = {DENSE: transformer, SSM: mamba2, HYBRID: rglru}
-_LATER = {
-    MOE: "ROADMAP.md Queue 1 item 13 (MoE and encoder-decoder families)",
-    ENCDEC: "ROADMAP.md Queue 1 item 13 (MoE and encoder-decoder families)",
+_FAMILY_MODULES = {
+    DENSE: transformer,
+    MOE: transformer,
+    SSM: mamba2,
+    HYBRID: rglru,
+    ENCDEC: encdec,
 }
 
 
 @dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-
-    def __post_init__(self):
-        if self.cfg.family not in _FAMILY_MODULES:
-            raise NotImplementedError(
-                f"the {self.cfg.family!r} family is not ported yet "
-                f"({_LATER[self.cfg.family]})")
 
     @property
     def mod(self):

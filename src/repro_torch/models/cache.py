@@ -6,7 +6,9 @@
   activation dtype and the SSD state (B, H, P, N) in float32;
 - hybrid (RecurrentGemma): per recurrent block the RG-LRU state ``h``
   (B, W) in float32 and the conv history (B, K-1, W) in the activation
-  dtype; per attention block a ring KV cache of ``local_window`` slots.
+  dtype; per attention block a ring KV cache of ``local_window`` slots;
+- encdec (Whisper): the decoder's KV cache and the cross-attention keys
+  and values of the encoder memory.
 
 The port keeps ``pos``, the number of positions seen, as a Python int
 (the reference keeps an int32 scalar array), so a decode step needs no
@@ -71,3 +73,20 @@ def hybrid_cache_specs(cfg: ModelConfig, batch: int) -> dict:
     if n_trail:
         out["trail"] = rec_state(n_trail)
     return out
+
+
+def encdec_cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
+    """Whisper: the decoder's self-attention cache (L, B, Hkv, max_seq,
+    Dh) and the encoder memory's cross-attention keys and values (L, B,
+    Hkv, enc_seq, Dh), never padded."""
+    L = cfg.n_layers
+    self_shape = (L, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    cross_shape = (L, batch, cfg.n_kv_heads, cfg.enc_seq, cfg.head_dim)
+    axes = ("layers", "batch", None, "kv_seq", None)
+    return {
+        "k": ParamSpec(self_shape, axes, init="zeros", dtype=cfg.dtype),
+        "v": ParamSpec(self_shape, axes, init="zeros", dtype=cfg.dtype),
+        "ck": ParamSpec(cross_shape, axes, init="zeros", dtype=cfg.dtype),
+        "cv": ParamSpec(cross_shape, axes, init="zeros", dtype=cfg.dtype),
+        "pos": _POS,
+    }

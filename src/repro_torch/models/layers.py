@@ -14,6 +14,7 @@ from typing import Optional
 import torch
 
 from repro_torch.config import GEGLU, GELU, SWIGLU, ModelConfig
+from repro_torch.devmath import divide
 from repro_torch.kernels import ops
 from repro_torch.models.params import ParamSpec, tree_map
 
@@ -71,6 +72,26 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_frequencies(d: int, device=None) -> torch.Tensor:
+    """exp(-log(10000) · arange(d/2) / (d/2 − 1)) in float32, in the
+    reference's op order (its ``log(10000.0)`` is a float32 log; the
+    quotient is the IEEE one on the card too)."""
+    half = d // 2
+    log_base = torch.log(torch.tensor(10000.0, dtype=torch.float32,
+                                      device=device))
+    steps = torch.arange(half, dtype=torch.float32, device=device)
+    return torch.exp(divide(-log_base * steps, half - 1))
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (S, d), float32: sin
+    then cos of position · frequency."""
+    freqs = sinusoidal_frequencies(d, device)
+    pos = torch.arange(seq, dtype=torch.float32, device=device)
+    ang = pos[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Decoder-only transformer, dense family: parameter specs, prefill and
-decode (the reference's `src/repro/models/transformer.py`).
+"""Decoder-only transformer, dense and MoE families: parameter specs,
+prefill and decode (the reference's `src/repro/models/transformer.py`).
 
 The reference scans the layers (``lax.scan``) over parameters stacked on
 a leading ``L`` axis; the port keeps the stacked layout and loops over
@@ -25,8 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.config import DENSE, ModelConfig
+from repro_torch.config import MOE, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE_MOD
 from repro_torch.models.cache import kv_cache_specs
 from repro_torch.models.params import DTYPES, ParamSpec, stack_specs, tree_map
 
@@ -36,15 +37,16 @@ from repro_torch.models.params import DTYPES, ParamSpec, stack_specs, tree_map
 # ---------------------------------------------------------------------------
 
 def layer_specs(cfg: ModelConfig) -> dict:
-    if cfg.family != DENSE:
-        raise NotImplementedError(f"family {cfg.family!r}: the port's "
-                                  f"transformer runs the dense family only")
-    return {
+    out = {
         "ln1": L.norm_specs(cfg.d_model, cfg.norm_kind),
         "attn": L.attention_specs(cfg),
         "ln2": L.norm_specs(cfg.d_model, cfg.norm_kind),
-        "mlp": L.mlp_specs(cfg),
     }
+    if cfg.family == MOE:
+        out["moe"] = MOE_MOD.moe_specs(cfg)
+    else:
+        out["mlp"] = L.mlp_specs(cfg)
+    return out
 
 
 def specs(cfg: ModelConfig) -> dict:
@@ -92,13 +94,23 @@ def unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return x.to(dtype) @ params["unembed"].to(dtype)
 
 
+def ffn(cfg: ModelConfig, lp: dict, h: torch.Tensor) -> tuple:
+    """The layer's feed-forward block: (y, aux); aux holds the MoE's
+    ``lb_loss`` and ``router_dropped`` and is empty for a dense MLP."""
+    if cfg.family == MOE:
+        return MOE_MOD.moe_apply(cfg, lp["moe"], h)
+    return L.mlp(h, lp["mlp"], cfg.mlp_variant, DTYPES[cfg.dtype]), {}
+
+
 def _layer_body(cfg: ModelConfig, x, lp, positions, attn_fn):
+    """One layer: (x, aux) with the feed-forward block's aux."""
     h = L.apply_norm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = L.qkv_project(cfg, lp["attn"], h, positions)
     o = attn_fn(q, k, v)
     x = x + L.output_project(cfg, lp["attn"], o)
     h = L.apply_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.mlp(h, lp["mlp"], cfg.mlp_variant, DTYPES[cfg.dtype])
+    y, aux = ffn(cfg, lp, h)
+    return x + y, aux
 
 
 def run_layers(cfg: ModelConfig, params: dict, key: str = "layers") -> dict:
@@ -139,7 +151,7 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
             ck[i, :, :, :S] = k.transpose(1, 2)      # cache layout (B,Hkv,S,Dh)
             cv[i, :, :, :S] = v.transpose(1, 2)
             return L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
-        x = _layer_body(cfg, x, layer(layers, i), positions, attn_fn)
+        x, _ = _layer_body(cfg, x, layer(layers, i), positions, attn_fn)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x[:, -1:, :])[:, 0]
     return logits, {"k": ck, "v": cv, "pos": S}
@@ -163,7 +175,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
             cv[i, :, :, pos] = v[:, 0]
             return L.attention(q, ck[i].transpose(1, 2), cv[i].transpose(1, 2),
                                causal=True, q_offset=pos, kv_len=pos + 1)
-        x = _layer_body(cfg, x, layer(layers, i), positions, attn_fn)
+        x, _ = _layer_body(cfg, x, layer(layers, i), positions, attn_fn)
     x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(cfg, params, x)[:, 0]
     return logits, {"k": ck, "v": cv, "pos": pos + 1}

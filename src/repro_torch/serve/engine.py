@@ -2,10 +2,12 @@
 reference's `src/repro/serve/engine.py`).
 
 One prefill for the batch, then one decode step per new token with a
-shared position counter. The carbon layer throttles the engine through
-`duty`, a decode-rate cap: after each step the engine sleeps so that
-decoding takes ``1 / duty`` of its unthrottled time (vertical scaling
-for inference).
+shared position counter. An encoder-decoder model is fed zero frames
+(B, enc_seq, d_model) in the activation dtype, as the reference feeds
+it; the frames are made before the prefill's timer starts. The carbon
+layer throttles the engine through `duty`, a decode-rate cap: after
+each step the engine sleeps so that decoding takes ``1 / duty`` of its
+unthrottled time (vertical scaling for inference).
 
 Timing ends in a device synchronisation, as the reference's ends in a
 host read of the tokens. Greedy decoding is ``argmax`` (the first
@@ -22,9 +24,10 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.config import ENCDEC
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
-from repro_torch.models.params import tree_map
+from repro_torch.models.params import DTYPES, tree_map
 
 
 @dataclass
@@ -53,6 +56,20 @@ class ServeEngine:
             self._prepared = (self.params, self.model.prepare(moved))
         return self._prepared[1]
 
+    def prefill_batch(self, prompts) -> dict:
+        """The prefill's inputs for prompts (B, S) on the engine's device:
+        the tokens, and for an encoder-decoder zero frames (the frontend
+        stub)."""
+        tokens = torch.as_tensor(prompts, dtype=torch.long,
+                                 device=self.device)
+        batch = {"tokens": tokens}
+        cfg = self.model.cfg
+        if cfg.family == ENCDEC:
+            batch["frames"] = torch.zeros(
+                (tokens.shape[0], cfg.enc_seq, cfg.d_model),
+                dtype=DTYPES[cfg.dtype], device=self.device)
+        return batch
+
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -65,12 +82,11 @@ class ServeEngine:
         if self.params is None:
             raise RuntimeError("call load() first or pass params")
         params = self.prepared_params()
-        tokens = torch.as_tensor(prompts, dtype=torch.long,
-                                 device=self.device)
-        B, S = tokens.shape
+        batch = self.prefill_batch(prompts)
+        B, S = batch["tokens"].shape
         self._sync()
         t0 = time.perf_counter()
-        logits, cache = self.model.prefill(params, {"tokens": tokens},
+        logits, cache = self.model.prefill(params, batch,
                                            pad_to=S + max_new_tokens)
         self._sync()
         self.stats["prefill_s"] += time.perf_counter() - t0

@@ -5,7 +5,7 @@ sweep card against CPU (`devmath`, the traffic, energy and
 elasticity steps, the faulted plan, the rows with all four layers and
 with traffic and energy folded into the scan), the scenario matrix and a
 custom policy's host decisions card against CPU, and card-vs-CPU serving
-(SmolLM, Mamba-2, RecurrentGemma). They skip without a GPU. On the
+(SmolLM, Mamba-2, RecurrentGemma, OLMoE's routing, Whisper). They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
 import numpy as np
@@ -207,6 +207,11 @@ FLASH_CASES = [
     (1, 1024, 1024, 4, 4, 256, True, 300), (1, 200, 1000, 6, 2, 128, False, 0),
     (1, 1000, 200, 3, 1, 64, True, 0), (2, 1000, 1000, 8, 8, 256, False, 300),
     (1, 77, 77, 16, 1, 128, True, 5), (2, 1000, 1000, 48, 16, 64, True, 300),
+    # the MoE and encoder-decoder prefills: Whisper-base's encoder (1,500
+    # frames, non-causal: a ragged last key tile) and cross-attention (4
+    # decoder rows against 1,500 keys), OLMoE's 16:16 and DBRX's 48:8
+    (8, 1500, 1500, 8, 8, 64, False, 0), (8, 4, 1500, 8, 8, 64, False, 0),
+    (4, 2048, 2048, 16, 16, 128, True, 0), (4, 2048, 2048, 48, 8, 128, True, 0),
 ]
 
 
@@ -261,6 +266,75 @@ def test_serving_on_card_equals_cpu(cuda):
         a, ca = model.decode(card_params, ca, tok.to(cuda))
         b, cb = model.decode(params, cb, tok)
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def _card_vs_cpu(cuda, model, batch, steps=8, tol=1e-3):
+    """Prefill and `steps` decode steps of the same float32 weights on
+    the card and on the CPU, the decode fed the CPU's greedy tokens;
+    every step's logits within `tol`. Returns the card's prefill flash
+    launches."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.params import tree_map
+    params = model.init(0, device="cpu")
+    card_params = tree_map(lambda t: t.to(cuda), params)
+    before = flash_attention.launches
+    a, ca = model.prefill(card_params, {k: v.to(cuda) for k, v in
+                                        batch.items()}, pad_to=64)
+    launches = flash_attention.launches - before
+    b, cb = model.prefill(params, batch, pad_to=64)
+    torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=tol)
+    for _ in range(steps):
+        tok = torch.argmax(b, -1)
+        a, ca = model.decode(card_params, ca, tok.to(cuda))
+        b, cb = model.decode(params, cb, tok)
+        torch.testing.assert_close(a.cpu(), b, atol=tol, rtol=tol)
+    return launches
+
+
+def test_moe_serving_on_card_equals_cpu(cuda, monkeypatch):
+    """OLMoE's routing (64 experts, top 8, capacity factor 1.25) at a
+    narrow width with its heads of 128, 2 layers, in float32: the logits
+    within 1e-3 and the routing ids equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    from repro_torch.models.api import get_model
+    cfg = dataclasses.replace(get_arch("olmoe-1b-7b").full, n_layers=2,
+                              d_model=512, n_heads=4, n_kv_heads=4, d_ff=256,
+                              vocab_size=1024, dtype="float32")
+    routes = {"cuda": [], "cpu": []}
+    route = moe._route
+
+    def recorded(cfg, router, x_flat):
+        out = route(cfg, router, x_flat)
+        routes[x_flat.device.type].append(out[1].cpu())
+        return out
+    monkeypatch.setattr(moe, "_route", recorded)
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 48)))
+    assert _card_vs_cpu(cuda, get_model(cfg), {"tokens": prompts}) == 2
+    assert len(routes["cuda"]) == len(routes["cpu"]) == 2 * 9
+    for a, b in zip(routes["cuda"], routes["cpu"]):
+        assert torch.equal(a, b)
+
+
+def test_encdec_serving_on_card_equals_cpu(cuda):
+    """Whisper-base's widths (8 heads of 64, 1,500 frames) at 2 encoder
+    and 2 decoder layers in float32: 6 flash launches a prefill (encoder
+    self-attention, decoder self- and cross-attention)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import get_model
+    cfg = dataclasses.replace(get_arch("whisper-base").full, n_layers=2,
+                              n_enc_layers=2, dtype="float32")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                    (2, 4))),
+             "frames": torch.as_tensor(rng.normal(
+                 size=(2, cfg.enc_seq, cfg.d_model)), dtype=torch.float32)}
+    assert _card_vs_cpu(cuda, get_model(cfg), batch) == 6
 
 
 # B, S, H, P, N, chunk: tests/test_kernels.py's SSD_CASES, Mamba-2's smoke

@@ -1,9 +1,10 @@
 """The serving slice as a whole against the JAX reference, on the CPU:
 configs, parameter specs and counts, prefill, the KV cache, decode steps
 and `ServeEngine.generate` for the smoke configs of phi4-mini-3.8b and
-smollm-135m. The reference's parameters (`Model.init(PRNGKey(0))`) are
-carried across by `convert.from_reference_params`; prompts and tokens
-are made with numpy from a seed."""
+smollm-135m; every architecture served on the CPU, and the launcher.
+The reference's parameters (`Model.init(PRNGKey(0))`) are carried
+across by `convert.from_reference_params`; prompts and tokens are made
+with numpy from a seed."""
 import dataclasses
 
 import numpy as np
@@ -62,9 +63,12 @@ def test_configs_are_copies_of_the_reference(arch):
 
 
 @pytest.mark.parametrize("arch", ["phi4-mini-3.8b", "smollm-135m",
-                                  "starcoder2-7b", "chameleon-34b"])
+                                  "starcoder2-7b", "chameleon-34b",
+                                  "olmoe-1b-7b", "dbrx-132b", "whisper-base"])
 @pytest.mark.parametrize("size", ["smoke", "full"])
 def test_dense_specs_match_the_reference(arch, size):
+    """The dense family's spec trees, and those of the MoE (the ``moe``
+    subtree in place of ``mlp``) and encoder-decoder families."""
     cfg = getattr(get_arch(arch), size)
     ref = ref_get_model(getattr(ref_get_arch(arch), size))
     ours = {p: (tuple(s.shape), s.init, s.scale, s.dtype)
@@ -234,10 +238,20 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert ServeEngine(model, device="cpu").load(0).params is not None
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "dbrx-132b", "whisper-base"])
-def test_other_families_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        get_model(get_arch(arch).smoke)
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_architecture_serves_on_the_cpu(arch):
+    """Each of the ten configurations builds, inits on the CPU and
+    serves a few greedy tokens (an encoder-decoder on zero frames)."""
+    model = get_model(get_arch(arch).smoke)
+    engine = ServeEngine(model, device="cpu").load(0)
+    prompts = np.random.default_rng(8).integers(
+        0, model.cfg.vocab_size, (2, 6)).astype(np.int32)
+    out = engine.generate(prompts, 3)
+    assert out["tokens"].shape == (2, 3) and out["tokens"].dtype == np.int32
+    assert out["tokens"].min() >= 0
+    assert out["tokens"].max() < model.cfg.vocab_size
+    assert out["stats"]["prefill_tokens"] == 12
+    assert out["stats"]["decode_tokens"] == 6
 
 
 def test_serve_launcher_runs_on_the_cpu(capsys):
@@ -247,4 +261,16 @@ def test_serve_launcher_runs_on_the_cpu(capsys):
                               "--new-tokens", "3"]) == 0
     out = capsys.readouterr().out
     assert "generated (2, 3) tokens, 0 flash kernel launches" in out
+    assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("arch", ["whisper-base", "olmoe-1b-7b"])
+def test_serve_launcher_serves_the_new_families_on_the_cpu(arch, capsys):
+    before = flash_attention.launches
+    assert serve_launch.main(["--arch", arch, "--device", "cpu", "--batch",
+                              "2", "--prompt-len", "5", "--new-tokens",
+                              "4"]) == 0
+    out = capsys.readouterr().out
+    assert f"{arch}-smoke on cpu: generated (2, 4) tokens, 0 flash kernel " \
+        "launches" in out
     assert flash_attention.launches == before
