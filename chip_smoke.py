@@ -40,6 +40,15 @@ raising on failure so the run exits non-zero:
      dbrx-132b at their published widths, 2 layers, prefill logits with
      the kernels against the plain versions (``attn_impl``/``ssm_impl``
      "ref"), within 2e-2 of the max |logit|;
+  3c. flash attention under autograd
+     (`FlashAttentionFn`: the kernel writing each row's log-sum-exp, the
+     reference's recomputing backward in float32) at
+     tests/test_kernels.py's float32 cases and SmolLM-135M's training
+     microbatch (8 x 4,096, 9:3 heads of 64, bf16): the lse within
+     1e-5 (f32) / 1e-4 (bf16) of `_flash_fwd_inner`'s, out at the flash
+     bars, dq / dk / dv within 1e-4 / 2e-2 of max |g| of autograd
+     through `attention_ref`; times of the forward with lse, the
+     backward and SDPA forward + backward;
   4. sweep cross-check: the placed sweep at 5,000 traces x 10 targets x
      288 epochs on the card and on the CPU: rows within 1e-9, plans equal;
   5. sweep at full width: the placed sweep of
@@ -106,17 +115,37 @@ raising on failure so the run exits non-zero:
      (`repro_torch.launch.carbon_serve`): the decode capacity calibrated
      on the card, the 96-interval control loop, and the duty it chose
      applied to `generate`: the decode loop's wall time over its
-     device-synced step time must be 1/duty within 10 %.
+     device-synced step time must be 1/duty within 10 %;
+  8. training card vs CPU: one AdamW step of SmolLM-135M at its
+     published widths, 2 layers, float32, 2 x 512 tokens: loss and
+     grad_norm within 1e-3 relative, m and v within 1e-3 of each leaf's
+     max, params within 1e-3, the updates (params after minus before)
+     within 1e-3 relative + 1e-2 of the learning rate save for at most
+     1e-4 of the entries;
+  9. training at full width: SmolLM-135M (30 layers, d 576, 9:3 x 64,
+     vocab 49,152), seeded weights, `SyntheticLM` tokens, 4,096 x 256
+     tokens a step in microbatches of 8, bf16 activations, f32 masters,
+     AdamW, no remat; a warm-up step on one microbatch, profiled (where
+     a microbatch's time goes), then 3 timed steps: `train_tok_s`,
+     `step_time_s`, `mfu`, peak memory (< 80 GB), the losses, 960 flash
+     launches with lse a step;
+  10. the carbon-aware trainer (`CarbonAwareTrainer` over an
+     `ElasticJob`) on SmolLM-135M at full width, sequence 4,096, global
+     batch 8, virtual clock, 6 steps: a duty below 1, a migration
+     between two slices (both this card) and a suspend/resume; every restore
+     bit-equal to its checkpoint, every loss equal to an uninterrupted
+     job's, average C(t) within 1.1 x the target.
 
-Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7
-and 7b are the main paths: every kernel's launch counter is set to 0
+Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7,
+7b, 9 (the 3 timed steps) and 10 are the main paths: every kernel's launch counter is set to 0
 just before each path and read just after; each path must have launched
 exactly its kernels (T admission launches in each sweep, one per epoch;
 per prefill 32 flash launches for phi4-mini, 64 SSD launches for
 Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma, 16 flash
 launches for OLMoE, 2 for DBRX, 18 for Whisper; two phi4-mini prefills
-in 7b) and no others, every flash launch on the wgmma
-route, every SSD launch on the mma_sync route and every RG-LRU launch on
+in 7b; 960 flash launches with lse a train step in 9, 30 a step in 10)
+and no others, every flash launch on the wgmma route (with lse in 9 and
+10), every SSD launch on the mma_sync route and every RG-LRU launch on
 the ring route.
 
 Prints the nvidia-smi line, one line of phase results, the ``kernels``
@@ -172,7 +201,9 @@ def _device_profile(fn):
     """Run `fn` under torch.profiler; returns (wall_s, device_s, top)
     with device_s the summed time of the CUDA kernels it ran and top the
     kernels by device time. device_s is None when the profiler saw no
-    device activity."""
+    device activity. The profiler's raw events are summed directly:
+    `key_averages` builds Python events for every record first, which
+    takes tens of seconds on a sweep's hundreds of thousands."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -181,13 +212,16 @@ def _device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [(e.self_device_time_total, e.count, e.key)
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
-    kernels.sort(reverse=True)
-    dev_s = sum(k[0] for k in kernels) / 1e6 if kernels else None
-    top = [{"name": k[2][:120], "device_s": k[0] / 1e6, "count": k[1]}
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation() and e.duration_ns() > 0):
+            ns, count = by_name.get(e.name(), (0, 0))
+            by_name[e.name()] = (ns + e.duration_ns(), count + 1)
+    kernels = sorted(((ns, count, name) for name, (ns, count)
+                      in by_name.items()), reverse=True)
+    dev_s = sum(k[0] for k in kernels) / 1e9 if kernels else None
+    top = [{"name": k[2][:120], "device_s": k[0] / 1e9, "count": k[1]}
            for k in kernels[:12]]
     return wall, dev_s, top
 
@@ -1280,6 +1314,437 @@ def carbon_serve(engine, dev):
             "launches": launches, "route_launches": routes}
 
 
+# ---------------------------------------------------------------------------
+# Training (SmolLM-135M): flash under autograd, card vs CPU, full width,
+# the carbon-aware trainer
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "smollm-135m"
+# the reference's train_4k shape: 4,096 x 256 tokens a step, microbatches
+# of 8 sequences, bf16 activations, f32 masters, AdamW, no remat
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 256, 8, 3
+# B, S, Hq, Hkv, Dh, causal, window: tests/test_kernels.py's self-attention
+# cases in float32, then SmolLM-135M's training microbatch in bf16
+FLASH_TRAIN_F32 = [(2, 128, 4, 2, 32, True, 0), (1, 64, 2, 1, 16, True, 24),
+                   (2, 128, 4, 4, 64, False, 0), (1, 96, 8, 2, 32, True, 0)]
+FLASH_TRAIN_MAIN = (TRAIN_MICRO, TRAIN_SEQ, 9, 3, 64, True, 0)
+LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
+UPDATE_OFF_SHARE = 1e-4     # train card vs CPU: updates allowed off the bar
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the carbon-aware trainer's scenario (tests/test_torch_trainer.py
+# "duty_suspend"): hourly g/kWh, target g/h, simulated s a step, steps
+TRAINER_TRACE = [400.0, 800.0, 2000.0, 100.0] * 12
+# 6 steps: 4 at duty 0.35 with a migration after the second, a suspend
+# of 12 intervals, the resume and one step after it
+TRAINER_TARGET, TRAINER_SIM_STEP_S, TRAINER_STEPS = 40.0, 600.0, 6
+
+
+def _train_qkvd(case, dtype, dev, seed):
+    B, S, Hq, Hkv, Dh = case[:5]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(B, S, h, Dh, generator=gen, device=dev).to(dtype)
+                 for h in (Hq, Hkv, Hkv, Hq))
+
+
+def _attn_pairs(S, causal, window):
+    """(q, key) pairs a self-attention row set keeps."""
+    if not causal:
+        return S * S
+    if window and window > 0:
+        return sum(min(i + 1, window) for i in range(S))
+    return S * (S + 1) // 2
+
+
+def flash_train_phase(dev):
+    """Flash attention under autograd (`FlashAttentionFn`): for
+    tests/test_kernels.py's float32 cases and SmolLM-135M's training
+    microbatch (8 x 4,096, 9:3 heads of 64) in bf16, the kernel's
+    log-sum-exp against `_flash_fwd_inner`'s (`ref.flash_fwd_torch`),
+    out against the plain version at the flash bars, dq / dk / dv
+    against autograd through `attention_ref` (1e-4 / 2e-2 of max |g|);
+    then at the training shape the times of the forward with lse, of
+    the backward (plain torch in float32, the reference's
+    `_flash_bwd_inner`), and of SDPA forward + backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention, route)
+    from repro_torch.kernels.ref import (attention_ref, flash_bwd_torch,
+                                         flash_fwd_torch)
+    checked = []
+    runs = [(c, torch.float32) for c in FLASH_TRAIN_F32]
+    runs.append((FLASH_TRAIN_MAIN, torch.bfloat16))
+    for i, (case, dtype) in enumerate(runs):
+        B, S, Hq, Hkv, Dh, causal, window = case
+        q, k, v, dout = _train_qkvd(case, dtype, dev, seed=100 + i)
+        with torch.no_grad():
+            out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                       return_lse=True)
+            want_out = attention_ref(q, k, v, causal=causal, window=window)
+            want_lse = flash_fwd_torch(q, k, v, causal, window)[1]
+        torch.cuda.synchronize()
+        lse_err = float((lse - want_lse).abs().max())
+        out_err = float((out.float() - want_out.float()).abs().max())
+        tol = FLASH_TOL[dtype]
+        if lse_err > LSE_TOL[dtype] or not torch.allclose(
+                out.float(), want_out.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"flash with lse at {case} {dtype}: lse "
+                                 f"max abs {lse_err}, out max abs {out_err}")
+        del out, lse, want_out, want_lse
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(FlashAttentionFn.apply(
+            *leaves, causal, window, None), leaves, dout)
+        ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(attention_ref(
+            *ref_leaves, causal=causal, window=window), ref_leaves, dout)
+        torch.cuda.synchronize()
+        rel = [float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in zip(got, want)]
+        if max(rel) > GRAD_TOL[dtype]:
+            raise AssertionError(f"FlashAttentionFn grads at {case} {dtype}:"
+                                 f" dq, dk, dv err / max|g| {rel}")
+        checked.append({"case": list(case), "dtype": str(dtype)[6:],
+                        "route": route(dtype, Dh) + "+lse",
+                        "lse_max_abs_err": lse_err,
+                        "lse_tol": LSE_TOL[dtype], "out_max_abs_err": out_err,
+                        "out_tol": tol, "grad_err_over_max": rel,
+                        "grad_tol": GRAD_TOL[dtype]})
+        del got, want, leaves, ref_leaves
+        _free_device_memory()
+
+    # times at the training shape
+    B, S, Hq, Hkv, Dh, causal, window = FLASH_TRAIN_MAIN
+    q, k, v, dout = _train_qkvd(FLASH_TRAIN_MAIN, torch.bfloat16, dev, 7)
+    scale = Dh ** -0.5
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    fwd_lse_ms = _median_ms(lambda: flash_attention(
+        q, k, v, causal=causal, return_lse=True), head_start_cycles=2_000_000)
+    fwd_ms = _median_ms(lambda: flash_attention(q, k, v, causal=causal),
+                        head_start_cycles=2_000_000)
+    bwd_ms = _median_ms(lambda: flash_bwd_torch(
+        q, k, v, out, lse, dout, causal, window, scale), reps=10,
+        head_start_cycles=20_000_000)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def ours():
+        torch.autograd.grad(FlashAttentionFn.apply(
+            *leaves, causal, window, None), leaves, dout)
+    tl = [t.transpose(1, 2).detach().clone().requires_grad_()
+          for t in (q, k, v)]
+    dout_t = dout.transpose(1, 2)
+
+    def sdpa():
+        torch.autograd.grad(F.scaled_dot_product_attention(
+            *tl, is_causal=causal, enable_gqa=True), tl, dout_t)
+    fwd_bwd_ms = _median_ms(ours, reps=10, head_start_cycles=20_000_000)
+    sdpa_fwd_bwd_ms = _median_ms(sdpa, head_start_cycles=2_000_000)
+    with torch.no_grad():
+        sdpa_fwd_ms = _median_ms(lambda: F.scaled_dot_product_attention(
+            *tl, is_causal=causal, enable_gqa=True),
+            head_start_cycles=2_000_000)
+    pairs = _attn_pairs(S, causal, window)
+    io = 2 * (2 * B * S * Hq * Dh + 2 * B * S * Hkv * Dh)
+    fwd_flops = 4 * B * Hq * Dh * pairs
+    bwd_flops = 10 * B * Hq * Dh * pairs     # s, dv, dp, dq, dk products
+    lse_bytes = 4 * B * Hq * S
+    bwd_bytes = io + 2 * B * S * Hq * Dh + lse_bytes   # + dout, lse; dq dk dv
+    return {"checked": checked, "shape": {
+        "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "Dh": Dh, "dtype": "bfloat16",
+        "causal": causal, "window": window},
+        "kernel_route": route(torch.bfloat16, Dh) + "+lse",
+        "fwd_lse_ms": fwd_lse_ms, "fwd_ms": fwd_ms,
+        "fwd_lse_bound_ms": max((io + lse_bytes) / HBM_BYTES_PER_S,
+                                fwd_flops / BF16_FLOP_PER_S) * 1e3,
+        "bwd_ms": bwd_ms, "bwd_flops": bwd_flops,
+        "bwd_bound_ms": max(bwd_bytes / HBM_BYTES_PER_S,
+                            bwd_flops / FP32_FLOP_PER_S) * 1e3,
+        "bwd_bound_by": "float32 operations (67 TFLOP/s, no TF32)",
+        "fwd_bwd_ms": fwd_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
+        "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
+        "library": "torch.nn.functional.scaled_dot_product_attention("
+                   "is_causal=True, enable_gqa=True), forward + backward"}
+
+
+def _train_model(n_layers=None, dtype=None):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import get_model
+    cfg = get_arch(TRAIN_ARCH).full
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              dtype=dtype or cfg.dtype)
+    return get_model(cfg)
+
+
+def train_cross_check(dev):
+    """One AdamW train step of SmolLM-135M at its published widths, 2
+    layers, float32, batch 2 x 512, from the same state on the card and
+    on the CPU (TF32 off): the loss and grad_norm within 1e-3 relative,
+    m and v within 1e-3 of each leaf's max, the params within 1e-3
+    (allclose), and the updates themselves (params after minus before)
+    within 1e-3 relative plus 1e-2 of the learning rate, save for at
+    most UPDATE_OFF_SHARE of the entries: a gradient within rounding of
+    0 can flip Adam's first step, of size lr. Reports how many entries'
+    step changed sign."""
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.models.params import flatten, tree_map
+    from repro_torch.train import loop as TL
+    model = _train_model(n_layers=2, dtype="float32")
+    tcfg = TrainConfig(seq_len=512, global_batch=2,
+                       optimizer=OptimizerConfig(warmup_steps=0))
+    state = TL.init_state(model, tcfg.optimizer, SEED, "cpu")
+    card_state = tree_map(lambda t: t.to(dev), state)
+    batch = next(iter(SyntheticLM(model.cfg.vocab_size, 512, 2, seed=SEED)))
+    step = TL.make_train_step(model, tcfg)
+    _zero_counts()
+    got, gm = step(card_state, to_device(batch, dev))
+    torch.cuda.synchronize()
+    launches, routes = _read_counts(), _read_routes()
+    want, wm = step(state, to_device(batch, "cpu"))
+    if launches["flash_attention"] != 2 or routes["flash_attention"][
+            "cuda_core+lse"] != 2:
+        raise AssertionError(f"train cross-check: flash launches {launches}"
+                             f", routes {routes}; expected 2 on "
+                             f"cuda_core+lse")
+    errs = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+            for k in ("loss", "grad_norm")}
+    w = dict(flatten(want))
+    p0 = dict(flatten(state["params"]))
+    worst, flips, off, n = {"opt": 0.0, "params": 0.0}, 0, 0, 0
+    lr = tcfg.optimizer.lr
+    for path, t in flatten(got):
+        a, b = t.cpu(), w[path]
+        if path.startswith("opt/"):
+            worst["opt"] = max(worst["opt"], float(
+                (a - b).abs().max() / b.abs().max()))
+        elif path.startswith("params/"):
+            worst["params"] = max(worst["params"], float(
+                ((a - b).abs() / (1e-3 + 1e-3 * b.abs())).max()))
+            before = p0[path[len("params/"):]]
+            da, db = a - before, b - before
+            flips += int((da.sign() != db.sign()).sum())
+            off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * lr).sum())
+            n += b.numel()
+    if max(errs.values()) > 1e-3 or worst["opt"] > 1e-3 or (
+            worst["params"] > 1.0) or off > UPDATE_OFF_SHARE * n:
+        raise AssertionError(f"train card vs CPU: {errs}, m/v err / max "
+                             f"{worst['opt']}, params margin "
+                             f"{worst['params']}, updates off the bar "
+                             f"{off} of {n}")
+    return {"arch": TRAIN_ARCH, "n_layers": 2, "dtype": "float32",
+            "batch": 2, "seq_len": 512, "loss": float(wm["loss"]),
+            "rel_err": errs, "mv_err_over_max": worst["opt"],
+            "params_margin": worst["params"], "update_sign_flips": flips,
+            "updates_off_bar": off, "params_total": n, "launches": launches, "route_launches": routes,
+            "tol": "loss, grad_norm 1e-3 rel; m, v 1e-3 of max; params "
+                   "allclose 1e-3; updates 1e-3 rel + 1e-2 lr, off the bar "
+                   f"at most {UPDATE_OFF_SHARE} of entries"}
+
+
+def _train_flops(cfg, n_params, batch, seq):
+    """Model FLOPs of one train step: 6·N·tokens plus causal attention,
+    3 x (4·B·Hq·Dh·S(S+1)/2) a layer (forward, and twice that back)."""
+    attn = 3 * 4 * batch * cfg.n_heads * cfg.head_dim * (seq * (seq + 1) // 2)
+    return 6.0 * n_params * batch * seq + attn * cfg.n_layers
+
+
+def train_full_width(dev):
+    """SmolLM-135M at full width (30 layers, d 576, 9:3 heads of 64, vocab
+    49,152), seeded weights, `SyntheticLM` tokens, the train_4k shape
+    (4,096 x 256 tokens a step in microbatches of 8), bf16 activations,
+    f32 masters, AdamW, no remat: a warm-up step on one microbatch (8
+    sequences) under torch.profiler, which gives where a microbatch's
+    time goes, then TRAIN_STEPS timed steps (each ended by reading its
+    loss, a device sync); 30 flash launches with lse per microbatch,
+    960 a step, and no other kernel; peak memory under 80 GB."""
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.train import loop as TL
+    model = _train_model()
+    cfg = model.cfg
+    opt = OptimizerConfig(warmup_steps=1, total_steps=100)
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                       microbatch=TRAIN_MICRO, remat="none", optimizer=opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = TL.init_state(model, opt, SEED, dev)
+    step = TL.make_train_step(model, tcfg)
+    data = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
+    # the warm-up: one microbatch's step, profiled
+    micro = TL.make_train_step(model, TrainConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_MICRO, optimizer=opt))
+    mb = {k: v[:TRAIN_MICRO] for k, v in to_device(next(data), dev).items()}
+    out = {}
+    wall, dev_s, top = _device_profile(lambda: out.update(zip(
+        ("state", "m"), micro(state, mb))))
+    state = out["state"]
+    losses = [float(out["m"]["loss"])]
+    del out, mb
+    _zero_counts()
+    times = []
+    for _ in range(TRAIN_STEPS):
+        batch = to_device(next(data), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches, routes = _read_counts(), _read_routes()
+    per_step = cfg.n_layers * (TRAIN_BATCH // TRAIN_MICRO)
+    want = {name: 0 for name in launches}
+    want["flash_attention"] = TRAIN_STEPS * per_step
+    if launches != want or routes["flash_attention"]["wgmma+lse"] != (
+            want["flash_attention"]):
+        raise AssertionError(f"train: launches {launches}, routes {routes}; "
+                             f"expected {want} on wgmma+lse")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(losses)) or peak >= DEVICE_BYTES:
+        raise AssertionError(f"train: losses {losses}, peak {peak} B")
+    step_s = float(np.median(times))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops(cfg, model.param_count(), TRAIN_BATCH, TRAIN_SEQ)
+    return {"arch": TRAIN_ARCH, "params": model.param_count(),
+            "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
+            "microbatch": TRAIN_MICRO, "dtype": cfg.dtype, "remat": "none",
+            "optimizer": "adamw",
+            "step_times_s": times, "step_time_s": step_s,
+            "tokens_per_step": tokens, "train_tok_s": tokens / step_s,
+            "model_flops_per_step": flops,
+            "mfu": flops / (step_s * BF16_FLOP_PER_S),
+            "mfu_peak": "989e12 (H100 SXM dense bf16)",
+            "losses": losses, "max_memory_allocated": peak,
+            "flash_lse_launches_per_step": per_step, "launches": launches,
+            "route_launches": routes, "profile_microbatch": {
+                "tokens": TRAIN_MICRO * TRAIN_SEQ, "wall_s": wall,
+                "device_s": dev_s, "top": top}}
+
+
+def carbon_trainer(dev):
+    """`CarbonAwareTrainer` on SmolLM-135M at full width (sequence 4,096,
+    global batch 8), on tests/test_torch_trainer.py's "duty_suspend"
+    scenario (virtual clock, the reference test's two slices, both on
+    this card): at least one interval with a duty below 1, one
+    migration and one suspend/resume; every restore bit-equal to the
+    state it saved; every step's loss equal to an uninterrupted job's
+    on the same batches (expected bit-equal; the bar 1e-6 relative);
+    average C(t) <= 1.1 x target (the reference test's bar)."""
+    import tempfile
+
+    from repro_torch.carbon.intensity import TraceProvider
+    from repro_torch.cluster.slices import Slice, SliceFamily
+    from repro_torch.config import CarbonConfig, OptimizerConfig, TrainConfig
+    from repro_torch.core.carbon_aware_trainer import CarbonAwareTrainer
+    from repro_torch.core.elastic import ElasticJob
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.params import flatten
+    from repro_torch.power.model import LinearPowerModel
+    model = _train_model()
+    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_MICRO,
+                       optimizer=OptimizerConfig(warmup_steps=1,
+                                                 total_steps=100))
+    restores = []
+
+    class RecordingJob(ElasticJob):
+        """Holds each restored state against the one it checkpointed."""
+
+        def checkpoint(self):
+            self.saved = {p: t.detach().cpu().clone()
+                          for p, t in flatten(self.state)}
+            return super().checkpoint()
+
+        def _held(self, kind, rec):
+            now = dict(flatten(self.state))
+            same = set(now) == set(self.saved) and all(
+                now[p].dtype == self.saved[p].dtype
+                and torch.equal(now[p].cpu(), self.saved[p]) for p in now)
+            restores.append({"kind": kind, "bit_equal": same, **rec})
+            if not same:
+                raise AssertionError(f"trainer: the state after {kind} is "
+                                     f"not the one saved")
+            return rec
+
+        def migrate(self, devices):
+            return self._held("migrate", super().migrate(devices))
+
+        def resume(self, devices):
+            return self._held("resume", super().resume(devices))
+
+    slices = [Slice("s1", 0.5, LinearPowerModel(30.0, 80.0), chips=1),
+              Slice("s2", 1.0, LinearPowerModel(60.0, 160.0), chips=1)]
+    step_tokens = TRAIN_SEQ * TRAIN_MICRO
+    step_flops = 6.0 * model.param_count() * step_tokens
+    losses = []
+    with tempfile.TemporaryDirectory() as d:
+        job = RecordingJob(model, tcfg, d)
+        job.start([dev], seed=SEED)
+        trainer = CarbonAwareTrainer(
+            job=job, family=SliceFamily(slices, baseline_idx=1),
+            slice_devices=[[dev], [dev]], carbon=TraceProvider(TRAINER_TRACE),
+            cfg=CarbonConfig(target_rate=TRAINER_TARGET, interval_s=300.0),
+            step_flops=step_flops, step_tokens=step_tokens,
+            peak_flops_per_chip=step_flops / 120.0,
+            sim_seconds_per_step=TRAINER_SIM_STEP_S)
+        _zero_counts()
+        t0 = time.perf_counter()
+        out = trainer.run(iter(SyntheticLM(model.cfg.vocab_size, TRAIN_SEQ,
+                                           TRAIN_MICRO, seed=SEED)),
+                          TRAINER_STEPS,
+                          on_interval=lambda log, m: losses.append(m["loss"]))
+        run_s = time.perf_counter() - t0
+        launches, routes = _read_counts(), _read_routes()
+        del job, trainer
+        _free_device_memory()
+    with tempfile.TemporaryDirectory() as d:
+        twin = ElasticJob(model, tcfg, d)
+        twin.start([dev], seed=SEED)
+        data = iter(SyntheticLM(model.cfg.vocab_size, TRAIN_SEQ, TRAIN_MICRO,
+                                seed=SEED))
+        twin_losses = [twin.train_step(next(data))["loss"]
+                       for _ in range(TRAINER_STEPS)]
+        del twin
+        _free_device_memory()
+    logs = out["logs"]
+    rates = [x.carbon_rate for x in logs]
+    avg = sum(rates) / len(rates)
+    kinds = [x.action for x in logs]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, twin_losses))
+    per_step = model.cfg.n_layers
+    problems = []
+    if out["steps"] != TRAINER_STEPS or len(losses) != TRAINER_STEPS:
+        problems.append(f"{out['steps']} steps, {len(losses)} losses")
+    if not out["migrations"] or "suspend" not in kinds or (
+            "resume" not in kinds) or not any(
+            x.duty < 1.0 and not x.suspended for x in logs):
+        problems.append(f"actions {kinds}")
+    if not all(r["bit_equal"] for r in restores) or len(restores) < 2:
+        problems.append(f"restores {restores}")
+    if loss_err > 1e-6:
+        problems.append(f"losses differ from the uninterrupted job's by "
+                        f"{loss_err}")
+    if avg > 1.1 * TRAINER_TARGET:
+        problems.append(f"average C(t) {avg} > 1.1 x {TRAINER_TARGET}")
+    if launches["flash_attention"] != TRAINER_STEPS * per_step or routes[
+            "flash_attention"]["wgmma+lse"] != TRAINER_STEPS * per_step:
+        problems.append(f"launches {launches}, routes {routes}")
+    if problems:
+        raise AssertionError(f"carbon-aware trainer: {problems}")
+    return {"arch": TRAIN_ARCH, "seq_len": TRAIN_SEQ,
+            "global_batch": TRAIN_MICRO, "steps": out["steps"],
+            "run_s": run_s, "target_g_per_h": TRAINER_TARGET,
+            "avg_rate_g_per_h": avg,
+            "intervals": [{"t": x.t, "c": x.carbon_intensity,
+                           "slice": x.slice_name, "duty": x.duty,
+                           "suspended": x.suspended, "action": x.action,
+                           "rate": x.carbon_rate} for x in logs],
+            "migrations": out["migrations"], "restores": restores,
+            "losses": losses, "twin_losses": twin_losses,
+            "losses_bit_equal": losses == twin_losses,
+            "loss_max_rel_err": loss_err, "launches": launches,
+            "route_launches": routes}
+
+
 def _kernel_counters():
     """{library name: the wrapper whose `launches` counts that kernel's
     launches}."""
@@ -1654,36 +2119,57 @@ def main():
         print(f"[{lib}] tensor-core and TMA instructions (cuobjdump -sass): "
               f"{json.dumps(found)}", flush=True)
 
-    kernels = {r["name"]: r for r in (admission_phase(dev), flash_phase(dev),
-                                      ssd_phase(dev), rglru_phase(dev))}
+    phase_s = {}        # wall seconds of each phase, for the time budget
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        phase_s[name] = time.perf_counter() - t0
+        return out
+
+    kernels = {r["name"]: r for r in (
+        timed("kernel_admission", admission_phase, dev),
+        timed("kernel_flash", flash_phase, dev),
+        timed("kernel_ssd", ssd_phase, dev),
+        timed("kernel_rglru", rglru_phase, dev))}
     for name in ("flash_attention", "ssd_scan", "rglru_scan"):
         kernels[name]["sass"] = sass[name]
-    bf16_check = [kernels_vs_plain_bf16(dev, arch, switch, kernel)
+    bf16_check = [timed(f"bf16_{arch}", kernels_vs_plain_bf16, dev, arch,
+                        switch, kernel)
                   for arch, switch, kernel in BF16_CHECK]
     _free_device_memory()
-    cross = cross_check(dev)
-    full = full_width(dev)
+    flash_train = timed("flash_train", flash_train_phase, dev)
     _free_device_memory()
-    arithmetic = device_arithmetic(dev)
-    layered_cross = layered_cross_check(dev)
-    layered = layered_full_width(dev)
+    cross = timed("cross_check", cross_check, dev)
+    full = timed("full_width", full_width, dev)
     _free_device_memory()
-    scenario_cross = scenario_cross_check(dev)
-    scenarios = scenario_full_width(dev)
+    arithmetic = timed("device_arithmetic", device_arithmetic, dev)
+    layered_cross = timed("layered_cross_check", layered_cross_check, dev)
+    layered = timed("layered_full_width", layered_full_width, dev)
     _free_device_memory()
-    custom = custom_policy(dev)
+    scenario_cross = timed("scenario_cross_check", scenario_cross_check, dev)
+    scenarios = timed("scenario_full_width", scenario_full_width, dev)
     _free_device_memory()
-    serve_cross = [serving_cross_check(dev, arch, n, ov)
-                   for arch, n, ov in SERVE_CROSS]
+    custom = timed("custom_policy", custom_policy, dev)
+    _free_device_memory()
+    serve_cross = [timed(f"serving_cross_{arch}", serving_cross_check, dev,
+                         arch, n, ov) for arch, n, ov in SERVE_CROSS]
     _free_device_memory()
     serve, cserve = [], None
     for arch, *shape in SERVE_FULL:
         then = (lambda e: carbon_serve(e, dev)) if arch == CARBON_SERVE_ARCH \
             else None
-        follow, record = serving_full_width(dev, arch, *shape, then=then)
+        follow, record = timed(f"serving_{arch}", serving_full_width, dev,
+                               arch, *shape, then=then)
         serve.append(record)
         cserve = follow if follow is not None else cserve
         _free_device_memory()
+    train_cross = timed("train_cross_check", train_cross_check, dev)
+    _free_device_memory()
+    train = timed("train_full_width", train_full_width, dev)
+    _free_device_memory()
+    trainer = timed("carbon_trainer", carbon_trainer, dev)
+    _free_device_memory()
 
     # launches: the count of each kernel over the main paths that run it
     by_path = {"placed_sweep": full["launches"],
@@ -1691,19 +2177,30 @@ def main():
                "scenario_matrix": scenarios["launches"],
                "custom_policy": custom["launches"],
                **{r["arch"]: r["launches"] for r in serve},
-               f"carbon_serve_{CARBON_SERVE_ARCH}": cserve["launches"]}
+               f"carbon_serve_{CARBON_SERVE_ARCH}": cserve["launches"],
+               "train_full_width": train["launches"],
+               "carbon_trainer": trainer["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
                                       by_path.items() if counts[name]}
         record["launches"] = sum(record["launches_by_path"].values())
         if not record["launches"]:
             raise AssertionError(f"{name} was not launched on a main path")
+    flash = kernels["flash_attention"]
+    flash["lse_launches"] = sum(
+        r["route_launches"]["flash_attention"]["wgmma+lse"]
+        for r in (train, trainer))
+    flash["train"] = {k: v for k, v in flash_train.items() if k != "checked"}
+    flash["train_checked"] = flash_train["checked"]
+    flash["max_abs_err_lse"] = max(c["lse_max_abs_err"]
+                                   for c in flash_train["checked"])
     kernels = list(kernels.values())
     total_s = time.perf_counter() - t_start
 
     record = {"card": card, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
-              "total_s": total_s, "kernels": kernels, "cross_check": cross,
+              "total_s": total_s, "phase_s": phase_s, "kernels": kernels,
+              "cross_check": cross,
               "full_width": full, "device_arithmetic": arithmetic,
               "layered_cross_check": layered_cross,
               "layered_full_width": layered,
@@ -1711,7 +2208,9 @@ def main():
               "scenario_full_width": scenarios, "custom_policy": custom,
               "serving_cross_check": serve_cross,
               "bf16_kernels_vs_plain": bf16_check, "serving": serve,
-              "carbon_serve": cserve}
+              "carbon_serve": cserve, "flash_train": flash_train,
+              "train_cross_check": train_cross, "train_full_width": train,
+              "carbon_trainer": trainer}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     summary = {k: v for k, v in full.items() if k not in ("rows", "profile")}
@@ -1751,8 +2250,22 @@ def main():
                           for r in serve_cross],
                       "bf16_kernels_vs_plain": bf16_check,
                       "serving": serve_summary}), flush=True)
+    train_summary = {k: v for k, v in train.items()
+                     if k != "profile_microbatch"}
+    train_summary["profile_microbatch"] = {
+        k: (v[:8] if k == "top" else v)
+        for k, v in train["profile_microbatch"].items()}
+    print(json.dumps({"training": {
+        "card": card, "phase_s": phase_s, "train_full_width": train_summary,
+        "train_cross_check": train_cross,
+        "flash_train": {k: v for k, v in flash_train.items()
+                        if k != "checked"},
+        "carbon_trainer": {k: v for k, v in trainer.items()
+                           if k not in ("losses", "twin_losses")}}}),
+          flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
-                                   if k not in ("checked", "sass")}
+                                   if k not in ("checked", "sass",
+                                                "train_checked")}
                                   for r in kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

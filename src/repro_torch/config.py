@@ -1,10 +1,17 @@
 """Model configuration of the port: its own copy of the reference's
 `ModelConfig`, `ShapeConfig`, `ArchSpec`, the family and MLP constants,
-`SHAPES` and the launchers' ``--key value`` parser (`parse_cli`).
+`SHAPES`, the training and carbon knobs (`OptimizerConfig`,
+`TrainConfig`, `CarbonConfig`) and the launchers' ``--key value``
+parser (`parse_cli`).
 
 Plain frozen dataclasses, field for field as in the JAX package, so a
-configuration reads the same on both sides. Every architecture has a
-full `ModelConfig` and a reduced smoke one in ``repro_torch.configs``.
+configuration reads the same on both sides, with one exception: the
+reference's `TrainConfig.checkpoint_dir`, `checkpoint_every` and
+`async_checkpoint` and `CarbonConfig.carbon_update_s`, `min_duty` and
+`suspend_on_floor` are read by no code on either side, so the port
+leaves them out (checkpoints go through `train.checkpoint` and
+`core.elastic.ElasticJob`). Every architecture has a full `ModelConfig`
+and a reduced smoke one in ``repro_torch.configs``.
 """
 from __future__ import annotations
 
@@ -182,6 +189,50 @@ class ArchSpec:
 
     def shapes(self) -> list[ShapeConfig]:
         return [s for n, s in SHAPES.items() if n not in self.skip_shapes]
+
+
+# ---------------------------------------------------------------------------
+# Training / carbon configs
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1_000
+    schedule: str = "cosine"           # cosine | linear | constant
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # gradient compression across the pod (pure-DP) axis
+    compression: str = "none"          # none | int8 | topk
+    topk_ratio: float = 0.05
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seq_len: int = 1024
+    global_batch: int = 8
+    microbatch: int = 0                # 0 -> no grad accumulation
+    steps: int = 100
+    seed: int = 0
+    remat: str = "none"                # none | full | dots
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    log_every: int = 10
+
+
+@dataclass(frozen=True)
+class CarbonConfig:
+    """Carbon Containers knobs (paper §3.1.1)."""
+
+    target_rate: float = 100.0         # C_target, g·CO2e/hr
+    epsilon: float = 0.05              # fraction of target (paper's ε threshold)
+    policy: str = "energy"             # energy | performance  (paper §3.2.2/3.2.3)
+    region: str = "NL"                 # carbon-intensity trace region
+    interval_s: float = 300.0          # monitoring interval (paper: 5 min)
 
 
 # ---------------------------------------------------------------------------

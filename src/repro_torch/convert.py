@@ -11,6 +11,10 @@ other side's fleet scan.
 `from_reference_params`: a model's parameters, as the reference's
 nested dict of arrays (for example ``jax.tree.map(np.asarray, params)``),
 checked leaf by leaf against the port's specs and returned as tensors.
+
+`from_reference_state`: a train state of the reference (``{"params",
+"opt": {"m", "v"}, "step" [, "ef"]}``, numpy arrays) as the port's
+train state, so both packages can take the same steps from it.
 """
 from __future__ import annotations
 
@@ -87,3 +91,29 @@ def from_reference_params(cfg, tree: Mapping, device="cuda") -> dict:
         leaves[path] = torch.from_numpy(arr.copy()).to(
             device=dev, dtype=DTYPES[spec.dtype])
     return unflatten(spec_tree, leaves)
+
+
+def from_reference_state(cfg, state: Mapping, device="cuda") -> dict:
+    """The reference's train state for `cfg` (nested dicts of numpy
+    arrays) as the port's: params in their specs' dtypes, the optimizer
+    moments and the error feedback (where present) float32 with the
+    params' paths, the step an int32 0-d tensor."""
+    dev = resolve_device(device)
+    spec_tree = get_model(cfg).specs()
+
+    def f32_tree(tree, name):
+        given = dict(flatten(tree))
+        paths = [p for p, _ in flatten(spec_tree)]
+        if set(given) != set(paths):
+            raise ValueError(f"{name} paths differ from the parameters'")
+        return unflatten(spec_tree, {p: torch.from_numpy(np.array(
+            given[p], dtype=np.float32)).to(dev) for p in paths})
+
+    out = {"params": from_reference_params(cfg, state["params"], dev),
+           "opt": {k: f32_tree(state["opt"][k], f"opt/{k}")
+                   for k in ("m", "v")},
+           "step": torch.tensor(int(np.asarray(state["step"])),
+                                dtype=torch.int32, device=dev)}
+    if "ef" in state:
+        out["ef"] = f32_tree(state["ef"], "ef")
+    return out

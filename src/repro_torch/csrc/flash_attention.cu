@@ -10,6 +10,15 @@
 // all contiguous, f32 or bf16 (o in q's type). GQA maps q head h to kv head
 // h / (Hq / Hkv).
 //
+// Both routes optionally write each row's log-sum-exp, lse (B, Hq, Sq) f32
+// (a null pointer writes nothing): m + log(max(l, 1e-37)) with m the row's
+// running max of the scaled scores and l its sum of exp(s - m), the natural
+// log of the sum of exp(scale q.k) over the row's kept keys, as the
+// reference's `_flash_fwd_inner` (src/repro/kernels/ref.py:141) returns it
+// for its recomputing backward. Both routes keep m in natural units (scores
+// times `scale`, exponentials by expf / __expf), so no base-2 conversion is
+// needed before the write.
+//
 // Two routes, chosen by the wrapper from a table of (dtype, Dh):
 //
 // wgmma (bf16, Dh 64 / 128 / 256): `flash_fwd_wgmma`, one block per (b, q
@@ -97,8 +106,9 @@ struct Tile {
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, T* __restrict__ o, int Sq, int Skv, int Hq,
-          int Hkv, int causal, int window, float scale) {
+          const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+          int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+          float scale) {
   using L = Tile<DH>;
   constexpr int NC = (DH + 31) / 32;  // output columns per lane
   extern __shared__ __align__(16) float smem[];
@@ -245,6 +255,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < ROWS; ++r) {
     if (qpos[r] >= Sq) continue;
     const float den = fmaxf(l[r], 1e-37f);
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * Hq + h) * Sq + qpos[r]] = m[r] + logf(den);
     T* orow = o + ((size_t)b * Sq + qpos[r]) * qstride + (size_t)h * DH;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
@@ -255,9 +267,9 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-           int Skv, int Hq, int Hkv, int causal, int window, float scale,
-           cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
+           float scale, cudaStream_t stream) {
   constexpr int bytes = Tile<DH>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -265,8 +277,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_fwd<T, DH><<<grid, THREADS, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, Hq, Hkv, causal,
-      window, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, Hq, Hkv,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -274,19 +286,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq,
 // bf16 at 64, 128 and 256).
 template <typename T>
 int dispatch(int Dh, const void* q, const void* k, const void* v, void* o,
-             int B, int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-             float scale, cudaStream_t s) {
+             float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+             int window, float scale, cudaStream_t s) {
   constexpr bool f32 = sizeof(T) == 4;
   switch (Dh) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
     default: break;
   }
   if constexpr (f32) {
     switch (Dh) {
-      case 64: return launch<T, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
-      case 128: return launch<T, 128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
-      case 256: return launch<T, 256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+      case 64: return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+      case 128: return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+      case 256: return launch<T, 256>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
       default: break;
     }
   }
@@ -296,17 +308,20 @@ int dispatch(int Dh, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // The CUDA-core route. dtype: 0 = float32 (Dh 16..256), 1 = bfloat16 (Dh 16
-// or 32). Returns 0, a cudaError_t code, or -1 for an unsupported Dh or
-// dtype. Launches on `stream`; does not synchronise.
+// or 32). `lse`: (B, Hq, Sq) float32, or null for none. Returns 0, a
+// cudaError_t code, or -1 for an unsupported Dh or dtype. Launches on
+// `stream`; does not synchronise.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int B, int Sq, int Skv,
-                                   int Hq, int Hkv, int Dh, int causal,
-                                   int window, float scale, void* stream) {
+                                   void* o, void* lse, int dtype, int B,
+                                   int Sq, int Skv, int Hq, int Hkv, int Dh,
+                                   int causal, int window, float scale,
+                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return dispatch<float>(Dh, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+    return dispatch<float>(Dh, q, k, v, o, l, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(Dh, q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+    return dispatch<__nv_bfloat16>(Dh, q, k, v, o, l, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
   return -1;
 }
 
@@ -339,8 +354,8 @@ __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_fwd_wgmma(__grid_constant__ const CUtensorMap mq,
                 __grid_constant__ const CUtensorMap mk,
                 __grid_constant__ const CUtensorMap mv,
-                __nv_bfloat16* __restrict__ o, int Sq, int Skv, int Hq,
-                int Hkv, int causal, int window, float scale) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Sq,
+                int Skv, int Hq, int Hkv, int causal, int window, float scale) {
   using L = WgLayout<DH>;
   constexpr int NCH = L::NCH;
   extern __shared__ uint8_t smem_raw[];
@@ -523,6 +538,8 @@ flash_fwd_wgmma(__grid_constant__ const CUtensorMap mq,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] >= Sq) continue;
+      if (lse != nullptr && t4 == 0)
+        lse[((size_t)b * Hq + h) * Sq + rows[r]] = m[r] + logf(fmaxf(l[r], 1e-37f));
       const float inv_den = 1.f / fmaxf(l[r], 1e-37f);
       __nv_bfloat16* orow = o + ((size_t)b * Sq + rows[r]) * qstride + (size_t)h * DH;
 #pragma unroll
@@ -555,9 +572,9 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int S, int H, int Dh) {
 }
 
 template <int DH>
-int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
-                 int Sq, int Skv, int Hq, int Hkv, int causal, int window,
-                 float scale, cudaStream_t stream) {
+int launch_wgmma(const void* q, const void* k, const void* v, void* o,
+                 float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                 int causal, int window, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   int err = make_map(&mq, q, B, Sq, Hq, DH);
   if (!err) err = make_map(&mk, k, B, Skv, Hkv, DH);
@@ -569,27 +586,29 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, int B,
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + WG_BM - 1) / WG_BM, Hq, B);
   flash_fwd_wgmma<DH><<<grid, WG_THREADS, bytes, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), Sq, Skv, Hq, Hkv, causal,
-      window, scale);
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, Sq, Skv, Hq, Hkv,
+      causal, window, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// bf16 q, k, v, o, contiguous, 16-byte aligned; Dh 64, 128 or 256. Returns
-// 0, a cudaError_t code, -1 for an unsupported Dh, -2 if
-// cuTensorMapEncodeTiled cannot be found, -3 if it refuses a tensor map.
-// Launches on `stream`; does not synchronise.
+// bf16 q, k, v, o, contiguous, 16-byte aligned; Dh 64, 128 or 256. `lse`:
+// (B, Hq, Sq) float32, or null for none. Returns 0, a cudaError_t code, -1
+// for an unsupported Dh, -2 if cuTensorMapEncodeTiled cannot be found, -3
+// if it refuses a tensor map. Launches on `stream`; does not synchronise.
 extern "C" int flash_attention_fwd_wgmma(const void* q, const void* k,
-                                         const void* v, void* o, int B, int Sq,
-                                         int Skv, int Hq, int Hkv, int Dh,
-                                         int causal, int window, float scale,
+                                         const void* v, void* o, void* lse,
+                                         int B, int Sq, int Skv, int Hq,
+                                         int Hkv, int Dh, int causal,
+                                         int window, float scale,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (Dh) {
-    case 64: return launch_wgmma<64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
-    case 128: return launch_wgmma<128>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
-    case 256: return launch_wgmma<256>(q, k, v, o, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+    case 64: return launch_wgmma<64>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+    case 128: return launch_wgmma<128>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
+    case 256: return launch_wgmma<256>(q, k, v, o, l, B, Sq, Skv, Hq, Hkv, causal, window, scale, s);
     default: return -1;
   }
 }

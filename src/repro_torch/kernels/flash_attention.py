@@ -1,5 +1,5 @@
-"""Forward GQA flash attention: the CUDA kernel and its plain PyTorch
-version.
+"""Forward GQA flash attention: the CUDA kernel, its plain PyTorch
+version, and the autograd Function that trains through it.
 
 `flash_attention` replaces the Pallas TPU kernel of the same name
 (`src/repro/kernels/flash_attention.py:78`). On a CUDA tensor it
@@ -8,12 +8,23 @@ launches one of the hand-written sm_90a kernels in
 and their bound) or raises. `ROUTES` names the kernel for each (dtype,
 Dh): ``"wgmma"`` (bf16 on the tensor cores, TMA-fed) or ``"cuda_core"``
 (f32 arithmetic, which keeps float32 exact); a pair the table does not
-list raises. On a CPU tensor it runs `flash_attention_torch`, the plain
-version, which is `attention_ref`; the plain version is also what the
-kernel is held against on the card.
+list raises. With ``return_lse`` the kernel also writes each row's
+log-sum-exp (float32, (B, Hq, Sq)). On a CPU tensor it runs
+`flash_attention_torch`, the plain version (`attention_ref`; with the
+log-sum-exp, the blocked `ref.flash_fwd_torch`); the plain version is
+also what the kernel is held against on the card.
+
+The kernel has no backward: on the card it raises when autograd would
+need one (grad enabled and an input requiring grad), rather than return
+an output cut from the graph. Training goes through `FlashAttentionFn`:
+its forward is this wrapper with the log-sum-exp (the kernel on the
+card), its backward the reference's recomputing backward
+(`ref._flash_bwd_inner` at the reference's blocks, plain torch in
+float32, as the reference computes it outside any Pallas kernel).
 
 `flash_attention.launches` counts kernel launches and
-`flash_attention.route_launches` the launches per route; CPU calls do
+`flash_attention.route_launches` the launches per route, with a
+``"+lse"`` suffix for launches that write the log-sum-exp; CPU calls do
 not count.
 """
 from __future__ import annotations
@@ -25,7 +36,8 @@ from typing import Optional
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels.ref import attention_ref
+from repro_torch.kernels.ref import (attention_ref, flash_bwd_torch,
+                                     flash_fwd_torch, needs_grad)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (dtype, Dh) -> the kernel that serves it on the card
@@ -48,8 +60,11 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None,
+                          return_lse: bool = False):
     """Plain PyTorch version of `flash_attention` (same contract)."""
+    if return_lse:
+        return flash_fwd_torch(q, k, v, causal, window, scale)
     return attention_ref(q, k, v, causal=causal, window=window, scale=scale)
 
 
@@ -81,31 +96,38 @@ def _library():
     """The built kernel library with its C signature declared."""
     lib = cuda_build.load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.flash_attention_fwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i,
-                                        i, ctypes.c_float, p]
+    lib.flash_attention_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
+                                        i, i, ctypes.c_float, p]
     lib.flash_attention_fwd.restype = i
-    lib.flash_attention_fwd_wgmma.argtypes = [p, p, p, p, i, i, i, i, i, i,
-                                              i, i, ctypes.c_float, p]
+    lib.flash_attention_fwd_wgmma.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                              i, i, i, ctypes.c_float, p]
     lib.flash_attention_fwd_wgmma.restype = i
     return lib
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
-    """q (B,Sq,Hq,Dh); k, v (B,Skv,Hkv,Dh) -> (B,Sq,Hq,Dh) in q's dtype.
+                    scale: Optional[float] = None, return_lse: bool = False):
+    """q (B,Sq,Hq,Dh); k, v (B,Skv,Hkv,Dh) -> (B,Sq,Hq,Dh) in q's dtype,
+    and with `return_lse` also lse (B,Hq,Sq) float32: the natural log of
+    each row's sum of exp(scale·q·k) over its kept keys.
 
     Causal and sliding-window (``window > 0``: keys within the last
     `window` positions) masks; scale defaults to Dh**-0.5. float32 or
-    bfloat16, contiguous; on the card a (dtype, Dh) pair of `ROUTES`.
+    bfloat16, contiguous; on the card a (dtype, Dh) pair of `ROUTES`,
+    and no input that needs a gradient (see `FlashAttentionFn`).
     """
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_torch(q, k, v, causal=causal, window=window,
-                                     scale=scale)
+                                     scale=scale, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    if needs_grad(q, k, v):
+        raise RuntimeError("the flash kernel has no backward and would cut "
+                           "the autograd graph; train through "
+                           "FlashAttentionFn (ops.mha does so under grad)")
     B, Sq, Hq, Dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     path = route(q.dtype, Dh)
@@ -115,7 +137,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = scale if scale is not None else Dh ** -0.5
     lib = _library()
     out = torch.empty_like(q)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    lse = (torch.empty(B, Hq, Sq, dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if return_lse else None)
     mask = (int(bool(causal)), int(window), float(scale))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -129,10 +154,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"flash_attention launch failed ({path}): error "
                            f"{err}")
     flash_attention.launches += 1
-    flash_attention.route_launches[path] += 1
-    return out
+    flash_attention.route_launches[path + ("+lse" if return_lse else "")] += 1
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
-flash_attention.route_launches = dict.fromkeys(sorted(set(ROUTES.values())),
-                                               0)
+flash_attention.route_launches = dict.fromkeys(
+    sorted(r + lse for r in set(ROUTES.values()) for lse in ("", "+lse")), 0)
+
+# the reference's blocking of its custom-VJP flash attention
+# (`src/repro/kernels/ref.py:254`), which the backward keeps
+Q_BLOCK, KV_BLOCK = 512, 1024
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention under autograd: the forward is `flash_attention`
+    writing (out, lse) (the kernel on the card, its plain version on the
+    CPU); the backward is the reference's `_flash_bwd_inner` in float32
+    on (q, k, v, out, lse, dout) at the reference's blocks
+    (`ref.flash_bwd_torch`). Self-attention: q and kv positions both
+    start at 0.
+
+        out = FlashAttentionFn.apply(q, k, v, causal, window, scale)
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        scale = scale if scale is not None else q.shape[3] ** -0.5
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_torch(q, k, v, out, lse, dout, *ctx.args,
+                                     Q_BLOCK, KV_BLOCK)
+        return dq, dk, dv, None, None, None

@@ -7,12 +7,21 @@ the TPU's place. ``impl``:
             otherwise and on the CPU;
   - "ref":  always the plain path.
 
-  - `mha`: the flash kernel for a prefill (``q_offset == 0``, no
-    ``kv_len`` or ``kv_positions``); `attention_ref` for decode.
+  - `mha`: on the card, the flash kernel for self-attention (``q_offset
+    == 0``, no ``kv_len`` or ``kv_positions``, more than one row), and
+    under grad (grad enabled, an input requiring it) `FlashAttentionFn`,
+    whose forward is the same kernel writing the row log-sum-exp and
+    whose backward is the reference's recomputing one. Otherwise the
+    reference's CPU rule: `attention_ref` for one row, ring-buffer
+    positions or Sq·Skv <= 1024²; above that `attention_flash` (self-
+    attention) or `attention_chunked`.
   - `ssd`: the SSD kernel when G == 1 and ``h0 is None``; `ssd_chunked`
     otherwise.
   - `rglru`: the RG-LRU kernel path (`rglru_gated`); `rglru_assoc`
     on the CPU.
+  - The SSD and RG-LRU kernels have no backward yet: on the card,
+    `ssd` and `rglru` raise `NotImplementedError` under grad (ROADMAP
+    item 15) instead of dropping to a plain path that hides the kernel.
   - The decode steps and the causal conv are plain torch, as they are
     plain jnp in the reference.
 """
@@ -21,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import ref as R
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                 flash_attention)
 from repro_torch.kernels.rglru_scan import rglru_gated
 from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -35,6 +45,13 @@ def _on_card(impl: str, x: torch.Tensor, op: str) -> bool:
     return impl == "auto" and x.device.type == "cuda"
 
 
+def _no_backward(op: str, *tensors):
+    if R.needs_grad(*tensors):
+        raise NotImplementedError(
+            f"training through the {op} kernel needs its backward, which is "
+            f"not ported yet (ROADMAP item 15)")
+
+
 # ---------------------------------------------------------------------------
 # Attention
 # ---------------------------------------------------------------------------
@@ -43,9 +60,18 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: int = 0, q_offset=0, kv_len=None,
         kv_positions=None, impl: str = "auto") -> torch.Tensor:
     """GQA attention. q (B,Sq,Hq,Dh); k,v (B,Skv,Hkv,Dh)."""
-    if (_on_card(impl, q, "attention") and q.shape[1] > 1 and q_offset == 0
-            and kv_len is None and kv_positions is None):
+    Sq, Skv = q.shape[1], k.shape[1]
+    self_attn = q_offset == 0 and kv_len is None and kv_positions is None
+    if _on_card(impl, q, "attention") and Sq > 1 and self_attn:
+        if R.needs_grad(q, k, v):
+            return FlashAttentionFn.apply(q, k, v, causal, window or 0, None)
         return flash_attention(q, k, v, causal=causal, window=window or 0)
+    if (impl == "auto" and Sq > 1 and kv_positions is None
+            and Sq * Skv > 1024 * 1024):
+        if self_attn:
+            return R.attention_flash(q, k, v, causal=causal, window=window)
+        return R.attention_chunked(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset, kv_len=kv_len)
     return R.attention_ref(q, k, v, causal=causal, window=window,
                            q_offset=q_offset, kv_len=kv_len,
                            kv_positions=kv_positions)
@@ -59,6 +85,7 @@ def ssd(x, dt, a_log, b, c, d, *, h0=None, chunk: int = 256,
         impl: str = "auto"):
     """SSD scan. Returns (y, h_final); see `ref.ssd_ref` for semantics."""
     if _on_card(impl, x, "ssd") and b.shape[2] == 1 and h0 is None:
+        _no_backward("SSD", x, dt, a_log, b, c, d)
         return ssd_scan(x, dt, a_log, b, c, d, chunk=chunk)
     return R.ssd_chunked(x, dt, a_log, b, c, d, h0=h0, chunk=chunk)
 
@@ -86,6 +113,7 @@ def ssd_decode_step(x, dt, a_log, b, c, d, h):
 def rglru(x, r, i, lam, *, h0=None, impl: str = "auto"):
     """Gated linear recurrence. Returns (h_seq, h_final)."""
     if _on_card(impl, x, "rglru"):
+        _no_backward("RG-LRU", x, r, i, lam, h0)
         return rglru_gated(x, r, i, lam, h0=h0)
     return R.rglru_assoc(x, r, i, lam, h0=h0)
 

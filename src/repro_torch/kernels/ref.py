@@ -4,8 +4,13 @@ SSD scan, the RG-LRU recurrence and the causal depthwise conv.
 The semantic ground truth of the port's model path, ported from the
 reference's `repro.kernels.ref`: the CUDA kernels' plain versions build
 on these, decode steps use them directly, and on the CPU they are what
-the model runs (`ssd_chunked` and `rglru_assoc` being the reference's
-CPU paths).
+the model runs (`attention_chunked`, `attention_flash`, `ssd_chunked`
+and `rglru_assoc` being the reference's CPU paths).
+
+`attention_flash` is the train-memory-safe attention: an autograd
+Function (`FlashAttention`) whose forward keeps only (q, k, v, out,
+lse) and whose backward recomputes each block's probabilities
+(`_flash_bwd_inner`), as the reference's custom VJP does.
 """
 from __future__ import annotations
 
@@ -16,6 +21,14 @@ import torch
 # A finite "minus infinity": a fully masked row gives uniform weights,
 # not NaN, exactly as in the reference.
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would need a backward through these inputs: grad
+    enabled and one of them (``None`` skipped) requiring grad. A kernel
+    without a backward raises then, rather than cut the graph."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def _attn_mask(sq: int, skv: int, q_offset, kv_len, causal: bool, window: int,
@@ -60,6 +73,242 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.float())
     return o.reshape(B, Sq, Hq, Dh).to(q.dtype)
+
+
+def _block_bias(q0: int, qb: int, k0: int, kb: int, kv_valid, causal: bool,
+                window: int, device):
+    """The (qb, kb) additive mask of a (q block, kv block) pair: 0 where
+    an edge is kept, NEG_INF elsewhere; None when every edge is kept and
+    False when none is. Adding 0 changes no score. A block masked for
+    every row changes no result of a row that keeps any key at all: it
+    adds exactly 0 after the row's first kept key (p = exp(NEG_INF - m)
+    = 0, corr = 1), and whatever it adds before that key is multiplied
+    by corr = exp(NEG_INF - m) = 0 there; in the backward its p is 0."""
+    q_lo, q_hi, k_lo, k_hi = q0, q0 + qb - 1, k0, k0 + kb - 1
+    if k_lo >= kv_valid or (causal and k_lo > q_hi) or (
+            window and window > 0 and k_hi <= q_lo - window):
+        return False
+    if k_hi < kv_valid and (not causal or k_hi <= q_lo) and not (
+            window and window > 0 and k_lo <= q_hi - window):
+        return None
+    q_pos = q0 + torch.arange(qb, device=device)[:, None]
+    kv_pos = k0 + torch.arange(kb, device=device)[None, :]
+    mask = kv_pos < kv_valid
+    if causal:
+        mask = mask & (kv_pos <= q_pos)
+    if window and window > 0:
+        mask = mask & (kv_pos > q_pos - window)
+    zero = torch.zeros((), device=device)
+    return torch.where(mask, zero, NEG_INF)
+
+
+def attention_chunked(q, k, v, *, causal: bool = True, window: int = 0,
+                      q_offset=0, kv_len=None, scale: Optional[float] = None,
+                      q_block: int = 512, kv_block: int = 1024):
+    """Online-softmax (flash-style) attention with bounded temporaries:
+    q blocks (outer) x kv blocks (inner carry), padded to block
+    multiples; `_flash_fwd_inner` with the queries at `q_offset` and the
+    keys past `kv_len` masked. The reference's CPU path for large
+    attention that is not plain self-attention (an offset or a partly
+    filled cache). A row must keep at least one key (as every causal,
+    windowed or cache row does)."""
+    B, Sq, Hq, Dh = q.shape
+    Skv = k.shape[1]
+    scale = scale if scale is not None else Dh ** -0.5
+    qb, kb, sq_p, skv_p = flash_blocks(Sq, Skv, q_block, kv_block)
+    out, _ = _flash_fwd_inner(_pad_seq(q, sq_p), _pad_seq(k, skv_p),
+                              _pad_seq(v, skv_p), causal, window, scale, qb,
+                              kb, Skv if kv_len is None else kv_len,
+                              q_offset)
+    return out[:, :Sq]
+
+
+# ---------------------------------------------------------------------------
+# Flash attention with a recomputing backward (the reference's custom VJP):
+# the backward recomputes each block's probabilities from the row
+# log-sum-exp instead of saving them, which keeps training at long
+# sequences within memory.
+# ---------------------------------------------------------------------------
+
+def _pad_seq(x, n):
+    """x (B, S, ...) zero-padded along S to n rows."""
+    if x.shape[1] == n:
+        return x
+    pad = x.new_zeros((x.shape[0], n - x.shape[1]) + tuple(x.shape[2:]))
+    return torch.cat([x, pad], dim=1)
+
+
+def _heads(x, Hkv, G):
+    """(B, S, Hkv·G, Dh) -> (B, Hkv, G, S, Dh)."""
+    B, S, _, Dh = x.shape
+    return x.reshape(B, S, Hkv, G, Dh).permute(0, 2, 3, 1, 4)
+
+
+def _flash_fwd_inner(q, k, v, causal, window, scale, q_block, kv_block,
+                     kv_valid, q_offset=0):
+    """Returns (out (B,Sq,Hq,Dh) in q.dtype, lse (B,Hkv,G,Sq) float32).
+    Sq and Skv are block multiples (the callers pad); keys at or past
+    `kv_valid` are masked; query i sits at position q_offset + i. lse =
+    m + log(max(l, 1e-37)), the natural log of the row's sum of
+    exp(scale·q·k) over its kept keys."""
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qb, kb = q_block, kv_block
+    qh = _heads(q.float() * scale, Hkv, G)                  # (B,Hkv,G,Sq,Dh)
+    kh = k.float().permute(0, 2, 1, 3)                      # (B,Hkv,Skv,Dh)
+    vh = v.float().permute(0, 2, 1, 3)
+    outs, lses = [], []
+    for i in range(Sq // qb):
+        qblk = qh[:, :, :, i * qb:(i + 1) * qb]
+        m = torch.full((B, Hkv, G, qb, 1), NEG_INF, device=q.device)
+        l = torch.zeros((B, Hkv, G, qb, 1), device=q.device)
+        acc = torch.zeros((B, Hkv, G, qb, Dh), device=q.device)
+        for j in range(Skv // kb):
+            bias = _block_bias(q_offset + i * qb, qb, j * kb, kb, kv_valid,
+                               causal, window, q.device)
+            if bias is False:
+                continue
+            s = torch.matmul(qblk, kh[:, :, None, j * kb:(j + 1) * kb]
+                             .transpose(-1, -2))
+            if bias is not None:
+                s = s + bias
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + torch.matmul(p, vh[:, :, None,
+                                                  j * kb:(j + 1) * kb])
+            m = m_new
+        lc = torch.clamp(l, min=1e-37)
+        outs.append(acc / lc)
+        lses.append((m + torch.log(lc))[..., 0])
+    out = torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, Dh)
+    return out.to(q.dtype), torch.cat(lses, dim=3)
+
+
+def _flash_bwd_inner(q, k, v, out, lse, dout, causal, window, scale,
+                     q_block, kv_block, kv_valid):
+    """(dq, dk, dv) in the dtypes of q, k, v, computed in float32 from
+    the saved (q, k, v, out, lse (B,Hkv,G,Sq)) and dout, one (q block,
+    kv block) pair at a time; Sq and Skv block multiples. Pairs masked
+    for every row are skipped: their probabilities are exactly 0."""
+    B, Sq, Hq, Dh = q.shape
+    _, Skv, Hkv, _ = k.shape
+    G = Hq // Hkv
+    qb, kb = q_block, kv_block
+    nq = Sq // qb
+
+    def blocks(x):      # (B,Sq,Hq,Dh) -> (B,Hkv,nq,G,qb,Dh), f32
+        return x.float().reshape(B, nq, qb, Hkv, G, Dh).permute(
+            0, 3, 1, 4, 2, 5).contiguous()
+
+    qh, oh, doh = blocks(q), blocks(out), blocks(dout)
+    kh = k.float().permute(0, 2, 1, 3).contiguous()         # (B,Hkv,Skv,Dh)
+    vh = v.float().permute(0, 2, 1, 3).contiguous()
+    lseh = lse.float().reshape(B, Hkv, G, nq, qb).transpose(2, 3)
+    delta = (doh * oh).sum(-1)                              # D_i = rowsum(dO·O)
+    dq = torch.zeros_like(qh)
+    dk = torch.zeros_like(kh)
+    dv = torch.zeros_like(vh)
+    for i in range(nq):
+        qblk = qh[:, :, i].reshape(B, Hkv, G * qb, Dh)
+        doblk = doh[:, :, i].reshape(B, Hkv, G * qb, Dh)
+        lse_i = lseh[:, :, i].reshape(B, Hkv, G * qb, 1)
+        d_i = delta[:, :, i].reshape(B, Hkv, G * qb, 1)
+        dq_i = dq[:, :, i].view(B, Hkv, G * qb, Dh)
+        for j in range(Skv // kb):
+            bias = _block_bias(i * qb, qb, j * kb, kb, kv_valid, causal,
+                               window, q.device)
+            if bias is False:
+                continue
+            cols = slice(j * kb, (j + 1) * kb)
+            kblk, vblk = kh[:, :, cols], vh[:, :, cols]
+            s = torch.matmul(qblk * scale, kblk.transpose(-1, -2))
+            if bias is not None:
+                s = (s.view(B, Hkv, G, qb, kb) + bias).view(B, Hkv, G * qb, kb)
+            p = torch.exp(s - lse_i)                        # (B,Hkv,G·qb,kb)
+            dv[:, :, cols] += torch.matmul(p.transpose(-1, -2), doblk)
+            dp = torch.matmul(doblk, vblk.transpose(-1, -2))
+            ds = p * (dp - d_i)
+            dq_i += torch.matmul(ds, kblk) * scale
+            dk[:, :, cols] += torch.matmul(ds.transpose(-1, -2), qblk) * scale
+    dq = dq.permute(0, 2, 4, 1, 3, 5).reshape(B, Sq, Hq, Dh)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_blocks(Sq: int, Skv: int, q_block: int = 512,
+                 kv_block: int = 1024) -> tuple:
+    """(q block, kv block, padded Sq, padded Skv) of `attention_flash`."""
+    qb, kb = min(q_block, Sq), min(kv_block, Skv)
+    return qb, kb, -(-Sq // qb) * qb, -(-Skv // kb) * kb
+
+
+def flash_fwd_torch(q, k, v, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None, q_block: int = 512,
+                    kv_block: int = 1024) -> tuple:
+    """(out (B,Sq,Hq,Dh), lse (B,Hq,Sq) float32) by `_flash_fwd_inner` on
+    inputs padded to block multiples; the plain version of the flash
+    kernel's forward with its log-sum-exp (head h = hkv·G + g)."""
+    B, Sq, Hq, Dh = q.shape
+    Skv = k.shape[1]
+    scale = scale if scale is not None else Dh ** -0.5
+    qb, kb, sq_p, skv_p = flash_blocks(Sq, Skv, q_block, kv_block)
+    out, lse = _flash_fwd_inner(_pad_seq(q, sq_p), _pad_seq(k, skv_p),
+                                _pad_seq(v, skv_p), causal, window, scale,
+                                qb, kb, Skv)
+    return out[:, :Sq], lse.reshape(B, Hq, sq_p)[:, :, :Sq]
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention whose backward recomputes: the forward
+    (`flash_fwd_torch`) saves (q, k, v, out, lse); the backward is
+    `flash_bwd_torch` on them. Self-attention: q and kv positions both
+    start at 0."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_block, kv_block):
+        scale = scale if scale is not None else q.shape[3] ** -0.5
+        out, lse = flash_fwd_torch(q, k, v, causal, window, scale, q_block,
+                                   kv_block)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, scale, q_block, kv_block)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd_torch(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_bwd_torch(q, k, v, out, lse, dout, causal, window, scale,
+                    q_block: int = 512, kv_block: int = 1024) -> tuple:
+    """(dq, dk, dv) of flash attention from the saved (q, k, v, out, lse
+    (B,Hq,Sq)) and dout: `_flash_bwd_inner` on inputs padded to the
+    blocks of `flash_blocks` (padded rows carry a zero dout and a zero
+    lse, so they add nothing). The backward of `FlashAttention`."""
+    B, Sq, Hq, _ = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    qb, kb, sq_p, skv_p = flash_blocks(Sq, Skv, q_block, kv_block)
+    lse_p = lse.new_zeros((B, Hq, sq_p))
+    lse_p[:, :, :Sq] = lse
+    dq, dk, dv = _flash_bwd_inner(
+        _pad_seq(q, sq_p), _pad_seq(k, skv_p), _pad_seq(v, skv_p),
+        _pad_seq(out, sq_p), lse_p.reshape(B, Hkv, Hq // Hkv, sq_p),
+        _pad_seq(dout.contiguous(), sq_p), causal, window, scale, qb, kb, Skv)
+    return dq[:, :Sq], dk[:, :Skv], dv[:, :Skv]
+
+
+def attention_flash(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None, q_block: int = 512,
+                    kv_block: int = 1024) -> torch.Tensor:
+    """Flash attention in plain PyTorch with a recomputing backward; self-
+    attention only (train and prefill paths). q (B,Sq,Hq,Dh); k, v
+    (B,Skv,Hkv,Dh)."""
+    return FlashAttention.apply(q, k, v, causal, window or 0, scale, q_block,
+                                kv_block)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

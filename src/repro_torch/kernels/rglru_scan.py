@@ -19,6 +19,11 @@ wrapper (`:87`): the gates are computed outside the kernel, and ``a`` is
 cast to the input's dtype before the scan (`:101`), so in bfloat16 this
 path rounds ``a`` where the reference's CPU path (`rglru_assoc`) does not.
 
+The kernel has no backward: on the card `rglru_scan` and `rglru_gated`
+raise when autograd would need one (grad enabled and an input requiring
+grad) rather than return outputs cut from the graph. Its backward, for
+RecurrentGemma training, is ROADMAP item 15.
+
 `rglru_scan.launches` counts kernel launches and
 `rglru_scan.route_launches` those launches per route; CPU calls do not
 count.
@@ -31,7 +36,7 @@ import functools
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels.ref import rglru_gates
+from repro_torch.kernels.ref import needs_grad, rglru_gates
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 8           # TMA needs 16-byte strides: W a multiple of 8
@@ -88,6 +93,14 @@ def _library():
     return lib
 
 
+def _no_grad(*tensors):
+    """Raise where autograd would need the kernel's (missing) backward."""
+    if needs_grad(*tensors):
+        raise RuntimeError("the RG-LRU kernel has no backward and would cut "
+                           "the autograd graph (its backward: ROADMAP item "
+                           "15)")
+
+
 def rglru_scan(a: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor) -> tuple:
     """a (B,S,W) float32 or bfloat16; gx (B,S,W) float32; h0 (B,W)
     float32. Returns (h_seq (B,S,W) float32, h_last (B,W) float32)."""
@@ -97,6 +110,7 @@ def rglru_scan(a: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor) -> tuple:
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, got "
                          f"{a.device}")
+    _no_grad(a, gx, h0)
     B, S, W = a.shape
     a, gx, h0 = a.contiguous(), gx.contiguous(), h0.contiguous()
     path = route(a, gx)
@@ -124,6 +138,8 @@ def rglru_gated(x, r, i, lam, *, h0=None) -> tuple:
     `rglru_pallas`: x, r, i (B,S,W); lam (W,); h0 (B,W). Returns
     (h_seq (B,S,W) in x.dtype, h_final (B,W) float32)."""
     B, S, W = x.shape
+    if x.device.type == "cuda":
+        _no_grad(x, r, i, lam, h0)
     a, gx = rglru_gates(x, r, i, lam)
     h0f = (torch.zeros(B, W, device=x.device) if h0 is None
            else h0.float())

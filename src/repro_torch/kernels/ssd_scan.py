@@ -13,6 +13,11 @@ strided views of its conv output). On a CPU tensor it runs
 `ssd_scan_torch`, the plain version, which is also what the kernel is
 held against on the card.
 
+The kernel has no backward: on the card it raises when autograd would
+need one (grad enabled and an input requiring grad) rather than return
+outputs cut from the graph. Its backward, for Mamba-2 training, is
+ROADMAP item 15.
+
 `ssd_scan.launches` counts calls that launched the kernel and
 `ssd_scan.route_launches` those calls per route; CPU calls do not
 count.
@@ -25,7 +30,7 @@ import functools
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels.ref import ssd_chunked
+from repro_torch.kernels.ref import needs_grad, ssd_chunked
 
 HEAD_DIMS = (16, 32, 64)                # templates in the CUDA source
 MAX_CHUNK = 256                         # the kernel's block scan
@@ -109,6 +114,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu tensors, got "
                          f"{x.device}")
+    if needs_grad(x, dt, a_log, b, c, d):
+        raise RuntimeError("the SSD kernel has no backward and would cut the "
+                           "autograd graph (its backward: ROADMAP item 15)")
     B, S, H, P = x.shape
     N = b.shape[3]
     if P not in HEAD_DIMS or Q > MAX_CHUNK:

@@ -4,10 +4,13 @@ five families: dense and MoE (`transformer`), ssm (Mamba-2), hybrid
 
     m = get_model(cfg)
     params = m.init(seed, device="cuda")
+    loss, metrics = m.loss(params, {"tokens": tokens, "labels": labels})
     logits, cache = m.prefill(params, {"tokens": tokens}, pad_to=n)
     logits, cache = m.decode(params, cache, tokens)
 
 An encdec prefill also takes ``batch["frames"]`` (B, enc_seq, d_model).
+`loss` (training) is ported for the dense and MoE families; the others
+raise `NotImplementedError` naming ROADMAP item 15.
 """
 from __future__ import annotations
 
@@ -49,6 +52,9 @@ class Model:
         return self.mod.prepare(self.cfg, params)
 
     # -- compute ------------------------------------------------------------
+    def loss(self, params, batch, remat: str = "none"):
+        return self.mod.loss_fn(self.cfg, params, batch, remat=remat)
+
     def prefill(self, params, batch, pad_to: int = 0):
         return self.mod.prefill(self.cfg, params, batch, pad_to=pad_to)
 

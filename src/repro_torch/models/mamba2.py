@@ -160,6 +160,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     return logits, {"conv": conv, "ssm": ssm, "pos": int(cache["pos"]) + 1}
 
 
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "none"):
+    raise NotImplementedError("the Mamba-2 training loss is not ported yet "
+                              "(ROADMAP.md Queue 1 item 15, training)")
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     del max_seq  # O(1) state
     return ssm_cache_specs(cfg, batch)

@@ -240,6 +240,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     return logits, {**cache, "pos": pos + 1}
 
 
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "none"):
+    raise NotImplementedError("the RecurrentGemma training loss is not ported yet "
+                              "(ROADMAP.md Queue 1 item 15, training)")
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     del max_seq  # O(1)-in-sequence state (window-bounded KV)
     return hybrid_cache_specs(cfg, batch)

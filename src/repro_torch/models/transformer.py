@@ -1,5 +1,6 @@
 """Decoder-only transformer, dense and MoE families: parameter specs,
-prefill and decode (the reference's `src/repro/models/transformer.py`).
+the train forward and its chunked cross-entropy loss, prefill and decode
+(the reference's `src/repro/models/transformer.py`).
 
 The reference scans the layers (``lax.scan``) over parameters stacked on
 a leading ``L`` axis; the port keeps the stacked layout and loops over
@@ -20,10 +21,23 @@ and decode give the same numbers on prepared and on master parameters.
 The decode step writes the new key and value into the cache in place
 (the reference returns an updated copy); the returned cache holds the
 same tensors.
+
+Training (`loss_fn`) differentiates through float32 master parameters:
+the casts to the activation dtype are inside the graph, as the
+reference's ``cast_weights`` casts inside its loss. The forward unbinds
+each stacked layer weight once (`torch.unbind`), so the backward writes
+one stacked gradient, not a full-stack zero gradient per layer as
+indexing ``t[i]`` would. `chunked_ce_loss` recomputes each 512-token
+block's logits in the backward (`torch.utils.checkpoint`, as the
+reference's ``jax.checkpoint``), so no (B, S, vocab) logits stay
+resident.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.config import MOE, ModelConfig
 from repro_torch.models import layers as L
@@ -124,6 +138,104 @@ def run_layers(cfg: ModelConfig, params: dict, key: str = "layers") -> dict:
 def layer(layers: dict, i: int) -> dict:
     """Layer `i` of a stacked layer group."""
     return tree_map(lambda t: t[i], layers)
+
+
+def maybe_remat(fn, remat: str):
+    """`fn` with the reference's rematerialization policy: "none" saves
+    every activation; "full" recomputes the layer in the backward
+    (saving nothing inside it); "dots" saves the plain matmuls' outputs
+    (2-D ``mm``; batched products are recomputed, as JAX's
+    ``checkpoint_dots_with_no_batch_dims``) and recomputes the rest."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        saved = [torch.ops.aten.mm.default, torch.ops.aten.addmm.default]
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         saved))
+    raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def unbind_layers(layers: dict, n: int) -> list:
+    """The per-layer dicts of a stacked layer group, each stack unbound
+    once (one stacked gradient in the backward)."""
+    flat = tree_map(lambda t: torch.unbind(t, 0), layers)
+    return [tree_map(lambda ts, i=i: ts[i], flat) for i in range(n)]
+
+
+# ---------------------------------------------------------------------------
+# Train forward + chunked CE loss
+# ---------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            remat: str = "none") -> tuple:
+    """tokens (B,S) -> (final hidden states (B,S,D) pre-unembed, the MoE
+    load-balancing loss summed over layers: 0 for a dense model)."""
+    B, S = tokens.shape
+    x = embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(x, lp):
+        def attn_fn(q, k, v):
+            return L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        x, aux = _layer_body(cfg, x, lp, positions, attn_fn)
+        return x, aux.get("lb_loss", zero)
+
+    step = maybe_remat(body, remat)
+    lbs = []
+    for lp in unbind_layers(run_layers(cfg, params), cfg.n_layers):
+        x, lb = step(x, lp)
+        lbs.append(lb)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.stack(lbs).sum()
+
+
+def _ce_block(cfg: ModelConfig, params: dict, xs, ls):
+    """(sum of the block's token NLLs over valid labels, their count)."""
+    logits = unembed(cfg, params, xs).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, torch.clamp(ls, min=0).long()[..., None])[..., 0]
+    valid = (ls >= 0).float()
+    return ((lse - ll) * valid).sum(), valid.sum()
+
+
+def chunked_ce_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
+                    labels: torch.Tensor, block: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over labels >= 0 without materializing (B,S,V):
+    blocks of `block` positions (the last padded with label -1), each
+    recomputed in the backward."""
+    B, S, D = x.shape
+    block = min(block, S)
+    if S % block:
+        pad = block - S % block
+        x = torch.cat([x, x.new_zeros((B, pad, D))], dim=1)
+        labels = torch.cat([labels, labels.new_full((B, pad), -1)], dim=1)
+        S = S + pad
+    head = {k: params[k] for k in ("embed", "unembed") if k in params}
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(S // block):
+        cols = slice(i * block, (i + 1) * block)
+        blk_nll, blk_n = checkpoint(functools.partial(_ce_block, cfg), head,
+                                    x[:, cols], labels[:, cols],
+                                    use_reentrant=False)
+        nll, n = nll + blk_nll, n + blk_n
+    return nll / torch.clamp(n, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            remat: str = "none") -> tuple:
+    """(total loss, {"ce_loss", "lb_loss"}): the chunked cross-entropy plus
+    0.01 x the MoE load-balancing loss (0 for a dense model)."""
+    x, lb_loss = forward(cfg, params, batch["tokens"], remat=remat)
+    loss = chunked_ce_loss(cfg, params, x, batch["labels"])
+    aux_coef = 0.01 if cfg.family == MOE else 0.0
+    total = loss + aux_coef * lb_loss
+    return total, {"ce_loss": loss, "lb_loss": lb_loss}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,161 @@
+"""Training loop: state construction, the train step with gradient
+accumulation, and a simple training loop `run` (the reference's
+`src/repro/train/loop.py`).
+
+State = ``{"params", "opt": {"m", "v"}, "step" [, "ef"]}``, nested dicts
+of tensors on one device: float32 master parameters (cast to the
+activation dtype inside the loss, as the reference casts with
+``cast_weights``), float32 optimizer moments, an int32 step and, with
+compression, float32 error feedback. `make_train_step` builds the
+function the carbon-aware trainer drives: microbatches run one after
+another in a Python loop (the reference's ``lax.scan``), summing float32
+gradients, which are then divided by their count; then compression,
+then the optimizer update. The step is functional: it returns a new
+state and leaves the one it was given as it was.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.config import OptimizerConfig, TrainConfig
+from repro_torch.data.pipeline import to_device
+from repro_torch.device import resolve_device
+from repro_torch.models.api import Model
+from repro_torch.models.params import DTYPES, ParamSpec, flatten, tree_map, unflatten
+from repro_torch.train import compression as COMP
+from repro_torch.train import optimizer as OPT
+
+
+# ---------------------------------------------------------------------------
+# State specs / construction
+# ---------------------------------------------------------------------------
+
+def state_specs(model: Model, opt_cfg: OptimizerConfig) -> dict:
+    pspecs = model.specs()
+    f32 = lambda s: dataclasses.replace(s, dtype="float32", init="zeros")  # noqa: E731
+    out = {
+        "params": pspecs,
+        "opt": {"m": tree_map(f32, pspecs), "v": tree_map(f32, pspecs)},
+        "step": ParamSpec((), (), init="zeros", dtype="int32"),
+    }
+    if opt_cfg.compression != "none":
+        out["ef"] = tree_map(f32, pspecs)
+    return out
+
+
+def abstract_state(model: Model, opt_cfg: OptimizerConfig) -> dict:
+    """The state's shapes and dtypes as tensors on the meta device (what
+    `checkpoint.load` restores into)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype],
+                                          device="meta"),
+                    state_specs(model, opt_cfg))
+
+
+def init_state(model: Model, opt_cfg: OptimizerConfig, seed=0,
+               device="cuda") -> dict:
+    """A fresh state on `device`; `seed` an int or a torch.Generator."""
+    dev = resolve_device(device)
+    params = model.init(seed, device=dev)
+    state = {"params": params, "opt": OPT.adamw_init(params),
+             "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    if opt_cfg.compression != "none":
+        state["ef"] = COMP.ef_init(params)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+def _value_and_grad(model: Model, remat: str, params: dict, batch: dict):
+    """((loss, metrics), grads) of the model's loss at `params`; the
+    gradients have the parameters' dtypes."""
+    paths = [p for p, _ in flatten(params)]
+    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss, metrics = model.loss(leaves, batch, remat=remat)
+        grads = torch.autograd.grad(loss, [t for _, t in flatten(leaves)])
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return (loss.detach(), metrics), unflatten(params, dict(zip(paths, grads)))
+
+
+def make_train_step(model: Model, cfg: TrainConfig) -> Callable:
+    """``train_step(state, batch) -> (new_state, metrics)``; `batch` holds
+    tensors on the state's device. metrics: loss, the model's metrics
+    (of the last microbatch), grad_norm and lr, as 0-d tensors."""
+    opt_cfg = cfg.optimizer
+    update = OPT.UPDATES[opt_cfg.name]
+
+    def compute_grads(params, batch):
+        if cfg.microbatch and cfg.microbatch < cfg.global_batch:
+            n_micro = cfg.global_batch // cfg.microbatch
+            gsum = lsum = metrics = None
+            for i in range(n_micro):
+                mb = {k: v[i * cfg.microbatch:(i + 1) * cfg.microbatch]
+                      for k, v in batch.items()}
+                (loss, metrics), g = _value_and_grad(model, cfg.remat,
+                                                     params, mb)
+                g = tree_map(lambda t: t.float(), g)
+                if gsum is None:
+                    gsum, lsum = g, loss
+                else:
+                    gsum = unflatten(gsum, {p: a + b for (p, a), (_, b) in
+                                            zip(flatten(gsum), flatten(g))})
+                    lsum = lsum + loss
+            divisor = torch.tensor(float(n_micro), device=lsum.device)
+            grads = tree_map(lambda t: t / divisor, gsum)
+            return (lsum / divisor, metrics), grads
+        return _value_and_grad(model, cfg.remat, params, batch)
+
+    def train_step(state: dict, batch: dict):
+        (loss, metrics), grads = compute_grads(state["params"], batch)
+        new_state = dict(state)
+        if opt_cfg.compression == "int8":
+            grads, new_state["ef"] = COMP.compress_int8(grads, state["ef"])
+        elif opt_cfg.compression == "topk":
+            grads, new_state["ef"] = COMP.compress_topk(grads, state["ef"],
+                                                        opt_cfg.topk_ratio)
+        new_p, new_opt, opt_metrics = update(
+            opt_cfg, grads, state["opt"], state["params"], state["step"])
+        new_state.update({"params": new_p, "opt": new_opt,
+                          "step": state["step"] + 1})
+        return new_state, {"loss": loss, **metrics, **opt_metrics}
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Simple loop (single-process; the carbon-aware trainer wraps the step)
+# ---------------------------------------------------------------------------
+
+def run(model: Model, cfg: TrainConfig, data_iter, *, device="cuda",
+        state: Optional[dict] = None,
+        step_callback: Optional[Callable] = None) -> dict:
+    """Train for cfg.steps; returns {"state", "history"}. Each step is
+    timed to a device sync (`step_time_s`); step_callback gets (i, state,
+    metrics)."""
+    dev = resolve_device(device)
+    if state is None:
+        state = init_state(model, cfg.optimizer, cfg.seed, dev)
+    step_fn = make_train_step(model, cfg)
+    history = []
+    it = iter(data_iter)
+    for i in range(cfg.steps):
+        batch = to_device(next(it), dev)
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}  # syncs
+        dt = time.perf_counter() - t0
+        metrics["step_time_s"] = dt
+        metrics["tokens"] = cfg.global_batch * cfg.seq_len
+        history.append(metrics)
+        if step_callback is not None:
+            step_callback(i, state, metrics)
+        if cfg.log_every and i % cfg.log_every == 0:
+            print(f"step {i:5d} loss {metrics['loss']:.4f} "
+                  f"({dt*1e3:.0f} ms)", flush=True)
+    return {"state": state, "history": history}

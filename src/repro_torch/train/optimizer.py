@@ -1,0 +1,129 @@
+"""AdamW, SGD with momentum and the learning-rate schedules (the
+reference's `src/repro/train/optimizer.py`).
+
+Optimizer state mirrors the parameter tree: ``{"m": tree, "v": tree}``
+of float32 tensors. All master math is float32 in the reference's
+expression order (``b1 ** t`` a float32 power, ``mhat / (sqrt(vhat) +
+eps) + wd·p``), so the CPU agrees with it to float32 rounding.
+`torch.optim.AdamW` is no substitute: it decays the weights apart from
+the Adam step. Updates are functional: they return new trees.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.config import OptimizerConfig
+from repro_torch.models.params import flatten, tree_map, unflatten
+
+F32 = torch.float32
+
+
+def _f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=F32, device=like.device)
+
+
+# ---------------------------------------------------------------------------
+# LR schedules
+# ---------------------------------------------------------------------------
+
+def lr_at(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """The learning rate at `step` (a 0-d tensor), a float32 0-d tensor."""
+    step = step.to(F32)
+    if cfg.warmup_steps > 0:
+        warm = torch.minimum(step / cfg.warmup_steps, _f32(1.0, step))
+    else:
+        warm = 1.0
+    frac = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    if cfg.schedule == "cosine":
+        decay = 0.5 * (1.0 + torch.cos(math.pi * frac))
+    elif cfg.schedule == "linear":
+        decay = 1.0 - frac
+    elif cfg.schedule == "constant":
+        decay = 1.0
+    else:
+        raise ValueError(cfg.schedule)
+    return cfg.lr * warm * (decay if isinstance(decay, torch.Tensor)
+                            else _f32(decay, step))
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+def adamw_init(params: dict) -> dict:
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=F32, device=p.device)
+    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum over leaves (in flatten order) of sum(x²), float32."""
+    leaves = [torch.sum(torch.square(x.to(F32))) for _, x in flatten(tree)]
+    total = leaves[0]
+    for x in leaves[1:]:
+        total = total + x
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
+    norm = global_norm(grads)
+    # an IEEE quotient: `float / tensor` is a reciprocal times the float
+    scale = torch.clamp(torch.div(_f32(max_norm, norm),
+                                  torch.clamp(norm, min=1e-9)), max=1.0)
+    return tree_map(lambda g: g.to(F32) * scale, grads), norm
+
+
+def _zip(fn, params, *trees):
+    """unflatten(params, fn(p, *others) per leaf), leaves by path."""
+    flat = [dict(flatten(t)) for t in trees]
+    return {path: fn(p, *(f[path] for f in flat))
+            for path, p in flatten(params)}
+
+
+def adamw_update(cfg: OptimizerConfig, grads, opt_state, params, step):
+    """Returns (new_params, new_opt_state, metrics). All f32 master math."""
+    if cfg.grad_clip > 0:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    else:
+        grads = tree_map(lambda g: g.to(F32), grads)
+        gnorm = global_norm(grads)
+    lr = lr_at(cfg, step)
+    t = step.to(F32) + 1.0
+    bc1 = 1.0 - torch.pow(_f32(cfg.b1, t), t)
+    bc2 = 1.0 - torch.pow(_f32(cfg.b2, t), t)
+
+    def upd(p, g, m, v):
+        m = cfg.b1 * m + (1.0 - cfg.b1) * g
+        v = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
+        mhat = m / bc1
+        vhat = v / bc2
+        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
+        return (p.to(F32) - lr * delta).to(p.dtype), m, v
+
+    out = _zip(upd, params, grads, opt_state["m"], opt_state["v"])
+    new_p, new_m, new_v = (unflatten(params, {k: o[i] for k, o in out.items()})
+                           for i in range(3))
+    return new_p, {"m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
+
+
+# ---------------------------------------------------------------------------
+# SGD (baseline optimizer)
+# ---------------------------------------------------------------------------
+
+def sgd_update(cfg: OptimizerConfig, grads, opt_state, params, step):
+    lr = lr_at(cfg, step)
+    if cfg.grad_clip > 0:
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+    else:
+        gnorm = global_norm(grads)
+    mom = unflatten(params, _zip(lambda p, m, g: 0.9 * m + g.to(F32), params,
+                                 opt_state["m"], grads))
+    new_p = unflatten(params, _zip(
+        lambda p, m: (p.to(F32) - lr * m).to(p.dtype), params, mom))
+    return new_p, {"m": mom, "v": opt_state["v"]}, {"grad_norm": gnorm, "lr": lr}
+
+
+UPDATES = {"adamw": adamw_update, "sgd": sgd_update}

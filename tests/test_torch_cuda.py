@@ -4,8 +4,11 @@ the edges of their tiles too), card-vs-CPU plan equality, the layered
 sweep card against CPU (`devmath`, the traffic, energy and
 elasticity steps, the faulted plan, the rows with all four layers and
 with traffic and energy folded into the scan), the scenario matrix and a
-custom policy's host decisions card against CPU, and card-vs-CPU serving
-(SmolLM, Mamba-2, RecurrentGemma, OLMoE's routing, Whisper). They skip without a GPU. On the
+custom policy's host decisions card against CPU, card-vs-CPU serving
+(SmolLM, Mamba-2, RecurrentGemma, OLMoE's routing, Whisper), and
+training: the flash kernel's log-sum-exp and gradients through
+`FlashAttentionFn`, the kernel wrappers' refusal to cut the autograd
+graph, and a train step card against CPU. They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
 import numpy as np
@@ -555,3 +558,175 @@ def test_custom_policy_on_card_equals_cpu(cuda, base):
     card = run(Custom, cuda)
     assert card.rows == run(Custom, "cpu").rows
     assert card.parity(run(stock, cuda)) <= 1e-9
+
+
+# B, S, Hq, Hkv, Dh, causal, window: tests/test_kernels.py's self-attention
+# cases, a padded kv block at the reference's 512 / 1,024 blocking (S
+# 1,100), a window, and SmolLM-135M's heads (9:3 of 64)
+TRAIN_FLASH_CASES = [(2, 128, 4, 2, 32, True, 0), (1, 64, 2, 1, 16, True, 24),
+                     (2, 128, 4, 4, 64, False, 0), (1, 96, 8, 2, 32, True, 0),
+                     (1, 1100, 9, 3, 64, True, 0), (1, 700, 4, 1, 128, True, 200),
+                     (2, 512, 9, 3, 64, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", TRAIN_FLASH_CASES, ids=str)
+def test_flash_fn_lse_and_grads_on_card(cuda, case, dtype):
+    """`FlashAttentionFn` on the card: one launch on the kernel's "+lse"
+    route; the log-sum-exp against the plain version's
+    (`ref.flash_fwd_torch`) within 1e-5 (float32) / 1e-4 (bf16: the
+    tensor cores' products summed in another order and __expf) absolute;
+    out within the flash bars (2e-5 / 2e-2); dq, dk, dv against autograd
+    through `attention_ref` on the same inputs within 1e-4 / 2e-2 of
+    each one's max |g|."""
+    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
+                                                     flash_attention, route)
+    from repro_torch.kernels.ref import attention_ref, flash_fwd_torch
+    B, S, Hq, Hkv, Dh, causal, window = case
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:5]))
+    q, k, v = (torch.randn(B, S, h, Dh, generator=gen, device=cuda).to(dt)
+               for h in (Hq, Hkv, Hkv))
+    dout = torch.randn(B, S, Hq, Dh, generator=gen, device=cuda).to(dt)
+    path = route(dt, Dh) + "+lse"
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+        want_out, want_lse = flash_fwd_torch(q, k, v, causal, window)
+    torch.testing.assert_close(lse, want_lse, atol=1e-5 if dtype == "float32"
+                               else 1e-4, rtol=0)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(), want_out.float(), atol=tol,
+                               rtol=tol)
+    before = flash_attention.route_launches[path]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got_out = FlashAttentionFn.apply(*leaves, causal, window, None)
+    got = torch.autograd.grad(got_out, leaves, dout)
+    assert flash_attention.route_launches[path] == before + 1
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref_leaves, causal=causal,
+                                             window=window), ref_leaves, dout)
+    gtol = 1e-4 if dtype == "float32" else 2e-2
+    for g, w in zip(got, want):
+        assert g.dtype == dt and g.shape == w.shape
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= gtol * scale
+
+
+def test_mha_trains_through_the_flash_kernel(cuda):
+    """Before the kernel wrappers refused grad, `ops.mha` on the card
+    returned the kernel's output cut from the graph: q.grad stayed None
+    and the q/k/v side of attention did not train. Now the gradient
+    reaches q, k and v through `FlashAttentionFn` and equals autograd
+    through `attention_ref` (float32, 1e-4 of max |g|)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(2, 64, h, 32, generator=gen, device=cuda)
+               .requires_grad_() for h in (4, 2, 2))
+    before = flash_attention.route_launches["cuda_core+lse"]
+    ops.mha(q, k, v, causal=True).square().sum().backward()
+    assert flash_attention.route_launches["cuda_core+lse"] == before + 1
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    attention_ref(*leaves, causal=True).square().sum().backward()
+    for t, r in zip((q, k, v), leaves):
+        scale = float(r.grad.abs().max())
+        assert float((t.grad - r.grad).abs().max()) <= 1e-4 * scale
+
+
+def test_kernel_wrappers_refuse_to_cut_the_graph(cuda):
+    """Each CUDA kernel wrapper raises under grad rather than return an
+    output detached from the graph; `ops.ssd` and `ops.rglru` raise
+    NotImplementedError naming ROADMAP item 15 (their backward); without
+    grad they run as before."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_gated, rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    gen = torch.Generator(device=cuda).manual_seed(1)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda)
+    q = rand(1, 64, 2, 32).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(q, q.detach(), q.detach())
+    x, dt = rand(1, 64, 4, 16).requires_grad_(), rand(1, 64, 4).abs()
+    a_log, b, c, d = rand(4), rand(1, 64, 1, 16), rand(1, 64, 1, 16), rand(4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd_scan(x, dt, a_log, b, c, d, chunk=32)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ops.ssd(x, dt, a_log, b, c, d, chunk=32)
+    a = torch.rand(2, 16, 64, device=cuda).requires_grad_()
+    gx, h0 = rand(2, 16, 64), torch.zeros(2, 64, device=cuda)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rglru_scan(a, gx, h0)
+    xr = rand(2, 16, 64).requires_grad_()
+    r, i, lam = rand(2, 16, 64), rand(2, 16, 64), rand(64)
+    with pytest.raises(RuntimeError, match="no backward"):
+        rglru_gated(xr, r, i, lam)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        ops.rglru(xr, r, i, lam)
+    with torch.no_grad():
+        flash_attention(q, q, q)
+        ssd_scan(x, dt, a_log, b, c, d, chunk=32)
+        rglru_gated(xr, r, i, lam)
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b"])
+def test_train_step_on_card_equals_cpu(cuda, arch):
+    """One AdamW train step (2 microbatches) of the smollm and OLMoE smoke
+    configs in float32 from the same state on the card and on the CPU
+    (OLMoE: the accumulating dispatch's backward and `lb_loss` under
+    `FlashAttentionFn`): the loss and grad_norm within 1e-3 relative,
+    the first and second moments within 1e-3 of each leaf's max, the
+    params within 1e-3 (allclose), and the updates themselves (params
+    after minus before): within 1e-3 relative plus 1e-2 of the learning
+    rate, save for at most 1e-4 of the entries (a gradient within
+    rounding of 0 flips Adam's first step, of size lr); every attention
+    of the card's step launched the flash kernel with lse."""
+    import dataclasses
+
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import SyntheticLM, to_device
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.api import get_model
+    from repro_torch.models.params import flatten, tree_map
+    from repro_torch.train import loop as TL
+    cfg = dataclasses.replace(get_arch(arch).smoke, dtype="float32")
+    model = get_model(cfg)
+    opt = OptimizerConfig(warmup_steps=0)
+    tcfg = TrainConfig(seq_len=64, global_batch=4, microbatch=2,
+                       optimizer=opt)
+    state = TL.init_state(model, tcfg.optimizer, 0, "cpu")
+    card_state = tree_map(lambda t: t.to(cuda), state)
+    batch = next(iter(SyntheticLM(cfg.vocab_size, 64, 4, seed=2)))
+    step = TL.make_train_step(model, tcfg)
+    before = flash_attention.route_launches["cuda_core+lse"]
+    got, gm = step(card_state, to_device(batch, cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.route_launches["cuda_core+lse"] == (
+        before + 2 * cfg.n_layers)
+    want, wm = step(state, to_device(batch, "cpu"))
+    for k in ("loss", "grad_norm"):
+        assert abs(float(gm[k]) - float(wm[k])) <= 1e-3 * abs(float(wm[k]))
+    w = dict(flatten(want))
+    p0 = dict(flatten(state["params"]))
+    off = n = 0
+    for path, t in flatten(got):
+        ref = w[path]
+        if path.startswith("opt/"):
+            scale = float(ref.abs().max())
+            assert float((t.cpu() - ref).abs().max()) <= 1e-3 * scale, path
+        elif path.startswith("params/"):
+            torch.testing.assert_close(t.cpu(), ref, atol=1e-3, rtol=1e-3)
+            before_p = p0[path[len("params/"):]]
+            da, db = t.cpu() - before_p, ref - before_p
+            off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * opt.lr)
+                       .sum())
+            n += ref.numel()
+        else:
+            assert torch.equal(t.cpu(), ref), path
+    assert off <= 1e-4 * n, (off, n)

@@ -31,6 +31,8 @@ def test_port_files_exist():
     assert "src/repro_torch/core/fleet.py" in names
     assert "chip_smoke.py" in names
     assert "src/repro_torch/serve/engine.py" in names
+    assert "src/repro_torch/train/loop.py" in names
+    assert "src/repro_torch/core/carbon_aware_trainer.py" in names
     assert (PORT / "csrc" / "admission_round.cu").exists()
     assert (PORT / "csrc" / "flash_attention.cu").exists()
     assert (PORT / "csrc" / "ssd_scan.cu").exists()
