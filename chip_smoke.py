@@ -49,6 +49,21 @@ raising on failure so the run exits non-zero:
      bars, dq / dk / dv within 1e-4 / 2e-2 of max |g| of autograd
      through `attention_ref`; times of the forward with lse, the
      backward and SDPA forward + backward;
+  3d. the SSD and RG-LRU kernels under autograd: `SSDScanFn` (the
+     kernel forward, the recompute and autodiff of `ssd_chunked`,
+     float32 inside, as its backward) at tests/test_kernels.py's SSD cases in
+     float32 and Mamba-2 smoke's mixer shape in bf16: one kernel launch
+     and y at the kernel's bars (the kernel checks); its gradients
+     equal autograd through `ssd_chunked` by construction, which checks
+     the Function's wiring only (phase 8's Mamba-2 step holds the
+     card's gradients against the CPU's);
+     `RGLRUScanFn` (the kernel forward, and the kernel again on the
+     reversed recurrence as its backward) at the RG-LRU cases and the
+     training shape (2, 4,096, 4,096): its (da, dgx, dh0) bit-equal to
+     the plain reverse loop `rglru_scan_bwd_torch` on the ring route,
+     and in float32 `rglru_gated`'s gradients within 1e-5 of max |g| of
+     autograd through `rglru_ref`; each backward timed at the full-width
+     training microbatch beside its bound;
   4. sweep cross-check: the placed sweep at 5,000 traces x 10 targets x
      288 epochs on the card and on the CPU: rows within 1e-9, plans equal;
   5. sweep at full width: the placed sweep of
@@ -116,19 +131,31 @@ raising on failure so the run exits non-zero:
      on the card, the 96-interval control loop, and the duty it chose
      applied to `generate`: the decode loop's wall time over its
      device-synced step time must be 1/duty within 10 %;
-  8. training card vs CPU: one AdamW step of SmolLM-135M at its
-     published widths, 2 layers, float32, 2 x 512 tokens: loss and
-     grad_norm within 1e-3 relative, m and v within 1e-3 of each leaf's
-     max, params within 1e-3, the updates (params after minus before)
-     within 1e-3 relative + 1e-2 of the learning rate save for at most
-     1e-4 of the entries;
-  9. training at full width: SmolLM-135M (30 layers, d 576, 9:3 x 64,
-     vocab 49,152), seeded weights, `SyntheticLM` tokens, 4,096 x 256
-     tokens a step in microbatches of 8, bf16 activations, f32 masters,
-     AdamW, no remat; a warm-up step on one microbatch, profiled (where
-     a microbatch's time goes), then 3 timed steps: `train_tok_s`,
-     `step_time_s`, `mfu`, peak memory (< 80 GB), the losses, 960 flash
-     launches with lse a step;
+  8. training card vs CPU, one AdamW step of each family at its
+     published widths and reduced depth in float32 from the same state:
+     SmolLM-135M at 2 layers (2 x 512 tokens), mamba2-2.7b at 2 layers
+     (2 x 512), recurrentgemma-9b at 3 layers, one superlayer (2 x 256;
+     window cut to 128 so that it bites), whisper-base with 2 + 2
+     layers (2 clips of 1,500 seeded frames, 64 tokens), the last three
+     in 2 microbatches: loss and grad_norm within 1e-3 relative, m and v
+     within 1e-3 of each leaf's max, params within 1e-3, the updates
+     (params after minus before) within 1e-3 relative + 1e-2 of the
+     learning rate save for at most 1e-4 of the entries; each kernel's
+     launches on its float32 route exact;
+  9. training at the published widths, seeded weights, `SyntheticLM`
+     tokens (and seeded bf16 frames), bf16 activations, f32 masters,
+     AdamW, each step spending its state: a warm-up step on one
+     microbatch, profiled (where a microbatch's time goes), then timed
+     steps: SmolLM-135M whole (30 layers, d 576, 9:3 x 64, vocab
+     49,152; 4,096 x 256 tokens a step in microbatches of 8, no remat,
+     3 steps); mamba2-2.7b whole (64 layers, 2,702,579,200 parameters)
+     and recurrentgemma-9b at 8 of its 38 layers (2 superlayers and the
+     2 trailing recurrent blocks; all 38 do not fit one card's AdamW
+     state), both 8 x 4,096 tokens a step in microbatches of 2 with
+     remat "full" and "dots"; whisper-base whole, 64 clips of 1,500
+     frames and 448 tokens a step in microbatches of 16 (2 steps each).
+     Each reports `step_time_s`, `train_tok_s`, `mfu`, peak memory (<
+     80 GB), the losses and its cuts;
   10. the carbon-aware trainer (`CarbonAwareTrainer` over an
      `ElasticJob`) on SmolLM-135M at full width, sequence 4,096, global
      batch 8, virtual clock, 6 steps: a duty below 1, a migration
@@ -137,16 +164,22 @@ raising on failure so the run exits non-zero:
      job's, average C(t) within 1.1 x the target.
 
 Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7,
-7b, 9 (the 3 timed steps) and 10 are the main paths: every kernel's launch counter is set to 0
+7b, 9 (each model's timed steps) and 10 are the main paths: every
+kernel's launch counter is set to 0
 just before each path and read just after; each path must have launched
 exactly its kernels (T admission launches in each sweep, one per epoch;
 per prefill 32 flash launches for phi4-mini, 64 SSD launches for
 Mamba-2, 26 RG-LRU and 12 flash launches for RecurrentGemma, 16 flash
 launches for OLMoE, 2 for DBRX, 18 for Whisper; two phi4-mini prefills
-in 7b; 960 flash launches with lse a train step in 9, 30 a step in 10)
-and no others, every flash launch on the wgmma route (with lse in 9 and
-10), every SSD launch on the mma_sync route and every RG-LRU launch on
-the ring route.
+in 7b; in 9 a step of SmolLM 960 flash launches with lse, of Mamba-2
+512 SSD launches (64 layers x 4 microbatches, twice under remat), of
+RecurrentGemma 72 RG-LRU launches (6 recurrent blocks x 4
+microbatches: forward, the remat's recompute and the backward) and 16
+flash launches with lse (2 x 4, twice), of Whisper 72 flash launches
+with lse (6 encoder + 12 decoder attentions x 4 microbatches); 30 flash
+launches with lse a step in 10) and no others, every flash launch on
+the wgmma route (with lse in 9 and 10), every SSD launch on the
+mma_sync route and every RG-LRU launch on the ring route.
 
 Prints the nvidia-smi line, one line of phase results, the ``kernels``
 JSON line, and last ``{"ok": true, "device": {...}}``. The full record
@@ -1322,7 +1355,7 @@ def carbon_serve(engine, dev):
 TRAIN_ARCH = "smollm-135m"
 # the reference's train_4k shape: 4,096 x 256 tokens a step, microbatches
 # of 8 sequences, bf16 activations, f32 masters, AdamW, no remat
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 4096, 256, 8, 3
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 256, 8
 # B, S, Hq, Hkv, Dh, causal, window: tests/test_kernels.py's self-attention
 # cases in float32, then SmolLM-135M's training microbatch in bf16
 FLASH_TRAIN_F32 = [(2, 128, 4, 2, 32, True, 0), (1, 64, 2, 1, 16, True, 24),
@@ -1466,161 +1499,6 @@ def flash_train_phase(dev):
                    "is_causal=True, enable_gqa=True), forward + backward"}
 
 
-def _train_model(n_layers=None, dtype=None):
-    import dataclasses
-
-    from repro_torch.configs import get_arch
-    from repro_torch.models.api import get_model
-    cfg = get_arch(TRAIN_ARCH).full
-    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
-                              dtype=dtype or cfg.dtype)
-    return get_model(cfg)
-
-
-def train_cross_check(dev):
-    """One AdamW train step of SmolLM-135M at its published widths, 2
-    layers, float32, batch 2 x 512, from the same state on the card and
-    on the CPU (TF32 off): the loss and grad_norm within 1e-3 relative,
-    m and v within 1e-3 of each leaf's max, the params within 1e-3
-    (allclose), and the updates themselves (params after minus before)
-    within 1e-3 relative plus 1e-2 of the learning rate, save for at
-    most UPDATE_OFF_SHARE of the entries: a gradient within rounding of
-    0 can flip Adam's first step, of size lr. Reports how many entries'
-    step changed sign."""
-    from repro_torch.config import OptimizerConfig, TrainConfig
-    from repro_torch.data.pipeline import SyntheticLM, to_device
-    from repro_torch.models.params import flatten, tree_map
-    from repro_torch.train import loop as TL
-    model = _train_model(n_layers=2, dtype="float32")
-    tcfg = TrainConfig(seq_len=512, global_batch=2,
-                       optimizer=OptimizerConfig(warmup_steps=0))
-    state = TL.init_state(model, tcfg.optimizer, SEED, "cpu")
-    card_state = tree_map(lambda t: t.to(dev), state)
-    batch = next(iter(SyntheticLM(model.cfg.vocab_size, 512, 2, seed=SEED)))
-    step = TL.make_train_step(model, tcfg)
-    _zero_counts()
-    got, gm = step(card_state, to_device(batch, dev))
-    torch.cuda.synchronize()
-    launches, routes = _read_counts(), _read_routes()
-    want, wm = step(state, to_device(batch, "cpu"))
-    if launches["flash_attention"] != 2 or routes["flash_attention"][
-            "cuda_core+lse"] != 2:
-        raise AssertionError(f"train cross-check: flash launches {launches}"
-                             f", routes {routes}; expected 2 on "
-                             f"cuda_core+lse")
-    errs = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
-            for k in ("loss", "grad_norm")}
-    w = dict(flatten(want))
-    p0 = dict(flatten(state["params"]))
-    worst, flips, off, n = {"opt": 0.0, "params": 0.0}, 0, 0, 0
-    lr = tcfg.optimizer.lr
-    for path, t in flatten(got):
-        a, b = t.cpu(), w[path]
-        if path.startswith("opt/"):
-            worst["opt"] = max(worst["opt"], float(
-                (a - b).abs().max() / b.abs().max()))
-        elif path.startswith("params/"):
-            worst["params"] = max(worst["params"], float(
-                ((a - b).abs() / (1e-3 + 1e-3 * b.abs())).max()))
-            before = p0[path[len("params/"):]]
-            da, db = a - before, b - before
-            flips += int((da.sign() != db.sign()).sum())
-            off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * lr).sum())
-            n += b.numel()
-    if max(errs.values()) > 1e-3 or worst["opt"] > 1e-3 or (
-            worst["params"] > 1.0) or off > UPDATE_OFF_SHARE * n:
-        raise AssertionError(f"train card vs CPU: {errs}, m/v err / max "
-                             f"{worst['opt']}, params margin "
-                             f"{worst['params']}, updates off the bar "
-                             f"{off} of {n}")
-    return {"arch": TRAIN_ARCH, "n_layers": 2, "dtype": "float32",
-            "batch": 2, "seq_len": 512, "loss": float(wm["loss"]),
-            "rel_err": errs, "mv_err_over_max": worst["opt"],
-            "params_margin": worst["params"], "update_sign_flips": flips,
-            "updates_off_bar": off, "params_total": n, "launches": launches, "route_launches": routes,
-            "tol": "loss, grad_norm 1e-3 rel; m, v 1e-3 of max; params "
-                   "allclose 1e-3; updates 1e-3 rel + 1e-2 lr, off the bar "
-                   f"at most {UPDATE_OFF_SHARE} of entries"}
-
-
-def _train_flops(cfg, n_params, batch, seq):
-    """Model FLOPs of one train step: 6·N·tokens plus causal attention,
-    3 x (4·B·Hq·Dh·S(S+1)/2) a layer (forward, and twice that back)."""
-    attn = 3 * 4 * batch * cfg.n_heads * cfg.head_dim * (seq * (seq + 1) // 2)
-    return 6.0 * n_params * batch * seq + attn * cfg.n_layers
-
-
-def train_full_width(dev):
-    """SmolLM-135M at full width (30 layers, d 576, 9:3 heads of 64, vocab
-    49,152), seeded weights, `SyntheticLM` tokens, the train_4k shape
-    (4,096 x 256 tokens a step in microbatches of 8), bf16 activations,
-    f32 masters, AdamW, no remat: a warm-up step on one microbatch (8
-    sequences) under torch.profiler, which gives where a microbatch's
-    time goes, then TRAIN_STEPS timed steps (each ended by reading its
-    loss, a device sync); 30 flash launches with lse per microbatch,
-    960 a step, and no other kernel; peak memory under 80 GB."""
-    from repro_torch.config import OptimizerConfig, TrainConfig
-    from repro_torch.data.pipeline import SyntheticLM, to_device
-    from repro_torch.train import loop as TL
-    model = _train_model()
-    cfg = model.cfg
-    opt = OptimizerConfig(warmup_steps=1, total_steps=100)
-    tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
-                       microbatch=TRAIN_MICRO, remat="none", optimizer=opt)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats(dev)
-    state = TL.init_state(model, opt, SEED, dev)
-    step = TL.make_train_step(model, tcfg)
-    data = iter(SyntheticLM(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=SEED))
-    # the warm-up: one microbatch's step, profiled
-    micro = TL.make_train_step(model, TrainConfig(
-        seq_len=TRAIN_SEQ, global_batch=TRAIN_MICRO, optimizer=opt))
-    mb = {k: v[:TRAIN_MICRO] for k, v in to_device(next(data), dev).items()}
-    out = {}
-    wall, dev_s, top = _device_profile(lambda: out.update(zip(
-        ("state", "m"), micro(state, mb))))
-    state = out["state"]
-    losses = [float(out["m"]["loss"])]
-    del out, mb
-    _zero_counts()
-    times = []
-    for _ in range(TRAIN_STEPS):
-        batch = to_device(next(data), dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
-        times.append(time.perf_counter() - t0)
-    launches, routes = _read_counts(), _read_routes()
-    per_step = cfg.n_layers * (TRAIN_BATCH // TRAIN_MICRO)
-    want = {name: 0 for name in launches}
-    want["flash_attention"] = TRAIN_STEPS * per_step
-    if launches != want or routes["flash_attention"]["wgmma+lse"] != (
-            want["flash_attention"]):
-        raise AssertionError(f"train: launches {launches}, routes {routes}; "
-                             f"expected {want} on wgmma+lse")
-    peak = torch.cuda.max_memory_allocated(dev)
-    if not all(np.isfinite(losses)) or peak >= DEVICE_BYTES:
-        raise AssertionError(f"train: losses {losses}, peak {peak} B")
-    step_s = float(np.median(times))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = _train_flops(cfg, model.param_count(), TRAIN_BATCH, TRAIN_SEQ)
-    return {"arch": TRAIN_ARCH, "params": model.param_count(),
-            "seq_len": TRAIN_SEQ, "global_batch": TRAIN_BATCH,
-            "microbatch": TRAIN_MICRO, "dtype": cfg.dtype, "remat": "none",
-            "optimizer": "adamw",
-            "step_times_s": times, "step_time_s": step_s,
-            "tokens_per_step": tokens, "train_tok_s": tokens / step_s,
-            "model_flops_per_step": flops,
-            "mfu": flops / (step_s * BF16_FLOP_PER_S),
-            "mfu_peak": "989e12 (H100 SXM dense bf16)",
-            "losses": losses, "max_memory_allocated": peak,
-            "flash_lse_launches_per_step": per_step, "launches": launches,
-            "route_launches": routes, "profile_microbatch": {
-                "tokens": TRAIN_MICRO * TRAIN_SEQ, "wall_s": wall,
-                "device_s": dev_s, "top": top}}
-
-
 def carbon_trainer(dev):
     """`CarbonAwareTrainer` on SmolLM-135M at full width (sequence 4,096,
     global batch 8), on tests/test_torch_trainer.py's "duty_suspend"
@@ -1640,7 +1518,7 @@ def carbon_trainer(dev):
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.models.params import flatten
     from repro_torch.power.model import LinearPowerModel
-    model = _train_model()
+    model = _family_model(TRAIN_ARCH)
     tcfg = TrainConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_MICRO,
                        optimizer=OptimizerConfig(warmup_steps=1,
                                                  total_steps=100))
@@ -1743,6 +1621,452 @@ def carbon_trainer(dev):
             "losses_bit_equal": losses == twin_losses,
             "loss_max_rel_err": loss_err, "launches": launches,
             "route_launches": routes}
+
+
+# ---------------------------------------------------------------------------
+# Training of the Mamba-2, RecurrentGemma and Whisper families
+# ---------------------------------------------------------------------------
+
+# SSDScanFn: tests/test_kernels.py's SSD cases in float32, then Mamba-2
+# smoke's mixer shape (d_inner 128 = 4 heads of 32, N 16, chunk 16) in bf16
+SSD_GRAD_CASES = [((2, 64, 4, 16, 32, 16), torch.float32),
+                  ((1, 128, 8, 32, 64, 32), torch.float32),
+                  ((2, 96, 4, 64, 16, 32), torch.float32),
+                  ((2, 64, 4, 32, 16, 16), torch.bfloat16)]
+SCAN_GRAD_TOL = 1e-5    # of max |g|, against autograd through the plain form
+# the full-width training microbatches: Mamba-2 (2, 4,096, 80 x 64, N 128,
+# chunk 256) and RecurrentGemma's scan (2, 4,096, 4,096), a in bf16
+SSD_TRAIN = (2, 4096, 80, 64, 128, 256)
+RGLRU_TRAIN = (2, 4096, 4096)
+# RGLRUScanFn: the reverse scan bit-equal on the ring route; f32 gradients
+# against autograd through `rglru_ref` (a Python loop: short sequences)
+RGLRU_GRAD_CASES = [(2, 64, 128), (1, 128, 256), (3, 32, 512)]
+
+
+def _grad_err(got, want):
+    """max over the gradients of max |g - w| / max |w|."""
+    return max(float((g.float() - w.float()).abs().max()
+                     / w.float().abs().max()) for g, w in zip(got, want))
+
+
+def scan_backward_phase(dev):
+    """The SSD and RG-LRU kernels under autograd. `SSDScanFn`: one kernel
+    launch on the dtype's route and y at the kernel's bars (the kernel
+    checks); its six gradients (with a gradient of h_final) within
+    SCAN_GRAD_TOL of max |g| of autograd through `ssd_chunked` on the
+    same inputs, which holds by construction (the backward recomputes
+    `ssd_chunked` from the saved inputs and never reads the kernel's y):
+    it checks the Function's wiring, not the kernel.
+    `RGLRUScanFn`: the backward's reverse scan on the ring route and its
+    (da, dgx, dh0) bit-equal to `rglru_scan_bwd_torch` (the plain reverse
+    loop), at tests/test_kernels.py's cases in both dtypes of a and at
+    the training shape; in float32 `rglru_gated`'s gradients within
+    SCAN_GRAD_TOL of autograd through `rglru_ref`. Then each backward
+    timed at the full-width training microbatch beside its bound: the
+    SSD's (plain torch, float32: the recompute and autodiff of
+    `ssd_chunked`) and the RG-LRU's (the ring kernel on the reversed
+    recurrence and the elementwise products)."""
+    from repro_torch.kernels.ref import (rglru_ref, rglru_scan_bwd_torch,
+                                         ssd_chunked, ssd_chunked_bwd_torch)
+    from repro_torch.kernels.rglru_scan import (RGLRUScanFn, rglru_gated,
+                                                rglru_scan, route)
+    from repro_torch.kernels.ssd_scan import ROUTES, SSDScanFn, ssd_scan
+    ssd_checked = []
+    for i, (case, dtype) in enumerate(SSD_GRAD_CASES):
+        B, S, H, P, N, Q = case
+        args = _ssd_inputs(case, dtype, dev, seed=300 + i)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        dy = torch.randn(B, S, H, P, generator=gen, device=dev).to(dtype)
+        dh = torch.randn(B, H, P, N, generator=gen, device=dev)
+        path = ROUTES[dtype]
+        before = ssd_scan.route_launches[path]
+        leaves = [t.clone().requires_grad_() for t in args]
+        y, h = SSDScanFn.apply(*leaves, Q)
+        got = torch.autograd.grad([y, h], leaves, [dy, dh])
+        plain = [t.clone().requires_grad_() for t in args]
+        py, ph = ssd_chunked(*plain, chunk=Q)
+        want = torch.autograd.grad([py, ph], plain, [dy, dh])
+        torch.cuda.synchronize()
+        err = _grad_err(got, want)
+        y, py = y.detach(), py.detach()
+        y_err = float((y.float() - py.float()).abs().max())
+        tol = SSD_TOL[dtype]
+        if (ssd_scan.route_launches[path] != before + 1 or err > SCAN_GRAD_TOL
+                or not torch.allclose(y.float(), py.float(), atol=tol,
+                                      rtol=tol)
+                or not all(bool(torch.isfinite(g).all()) for g in got)):
+            raise AssertionError(f"SSDScanFn at {case} {dtype}: grads err / "
+                                 f"max {err}, y max abs {y_err}")
+        ssd_checked.append({"case": list(case), "dtype": str(dtype)[6:],
+                            "route": path, "y_max_abs_err": y_err,
+                            "grad_err_over_max": err,
+                            "grad_check": "the plain backward's by "
+                                          "construction: the Function's "
+                                          "wiring, not the kernel"})
+    rg_checked = []
+    runs = [(c, dt) for c in RGLRU_CASES for dt in RGLRU_TOL]
+    runs.append((RGLRU_TRAIN, torch.bfloat16))
+    for i, (case, dtype) in enumerate(runs):
+        B, S, W = case
+        a, gx, h0 = _rglru_inputs(case, dtype, dev, seed=400 + i)
+        gen = torch.Generator(device=dev).manual_seed(i)
+        dy = torch.randn(B, S, W, generator=gen, device=dev)
+        dl = torch.randn(B, W, generator=gen, device=dev)
+        path = route(a, gx)
+        before = rglru_scan.route_launches[path]
+        leaves = [t.clone().requires_grad_() for t in (a, gx, h0)]
+        hs, hl = RGLRUScanFn.apply(*leaves)
+        got = torch.autograd.grad([hs, hl], leaves, [dy, dl])
+        want = rglru_scan_bwd_torch(a, hs.detach(), h0, dy, dl)
+        torch.cuda.synchronize()
+        launched = rglru_scan.route_launches[path] - before
+        if path == "ring":
+            ok = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = 0.0 if ok else _grad_err(got, want)
+        else:
+            err = _grad_err(got, want)
+            ok = err <= SCAN_GRAD_TOL
+        if not ok or launched != 2:
+            raise AssertionError(f"RGLRUScanFn ({path}) at {case} {dtype}: "
+                                 f"backward vs the plain reverse loop {err}, "
+                                 f"{launched} launches")
+        rec = {"case": list(case), "dtype": str(dtype)[6:], "route": path,
+               "bit_equal": path == "ring", "err_over_max": err}
+        if dtype == torch.float32 and tuple(case) in RGLRU_GRAD_CASES:
+            x, r, ig = (torch.randn(B, S, W, generator=gen, device=dev)
+                        for _ in range(3))
+            lam = torch.randn(W, generator=gen, device=dev)
+            leaves = [t.clone().requires_grad_() for t in (x, r, ig, lam, h0)]
+            got = torch.autograd.grad(rglru_gated(*leaves[:4], h0=leaves[4]),
+                                      leaves, [dy, dl])
+            plain = [t.clone().requires_grad_() for t in (x, r, ig, lam, h0)]
+            want = torch.autograd.grad(rglru_ref(*plain[:4], h0=plain[4]),
+                                       plain, [dy, dl])
+            rec["gated_grad_err_over_max"] = _grad_err(got, want)
+            if rec["gated_grad_err_over_max"] > SCAN_GRAD_TOL:
+                raise AssertionError(f"rglru_gated grads at {case}: {rec}")
+        rg_checked.append(rec)
+        del leaves, got, want
+    if rg_checked[-1]["route"] != "ring":
+        raise AssertionError("the training shape is not on the ring route")
+    _free_device_memory()
+
+    # the SSD backward at Mamba-2's training microbatch
+    B, S, H, P, N, Q = SSD_TRAIN
+    args = _ssd_inputs(SSD_TRAIN, torch.bfloat16, dev, seed=500)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dy = torch.randn(B, S, H, P, generator=gen, device=dev).to(torch.bfloat16)
+    ssd_bwd_ms = _median_ms(lambda: ssd_chunked_bwd_torch(*args, dy,
+                                                          chunk=Q),
+                            reps=5, warmup=2, head_start_cycles=50_000_000)
+    nc = S // Q
+    fwd_flops = B * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * P * N))
+    # inputs read (x, b, c, dy bf16; dt f32), gradients written in the
+    # inputs' dtypes; the recompute and the autodiff: 3 x the forward's
+    # products, in float32
+    ssd_bytes = (2 * (2 * B * S * H * P + 4 * B * S * N) + 2 * 4 * B * S * H)
+    ssd_flops = 3 * fwd_flops
+    ssd_bwd = {"shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
+                         "dtype": "bfloat16"},
+               "implementation": "plain torch, float32: kernels/ref.py "
+                                 "ssd_chunked_bwd_torch (no kernel; the "
+                                 "reference differentiates ssd_chunked)",
+               "ms": ssd_bwd_ms, "bytes": ssd_bytes, "flops": ssd_flops,
+               "bound_ms": max(ssd_bytes / HBM_BYTES_PER_S,
+                               ssd_flops / FP32_FLOP_PER_S) * 1e3,
+               "bound_by": "float32 operations (67 TFLOP/s, no TF32)",
+               "library_ms": None, "checked": ssd_checked}
+    del args, dy
+    _free_device_memory()
+
+    # the RG-LRU backward at RecurrentGemma's training microbatch
+    B, S, W = RGLRU_TRAIN
+    a, gx, h0 = _rglru_inputs(RGLRU_TRAIN, torch.bfloat16, dev, seed=600)
+    dy = torch.randn(B, S, W, generator=gen, device=dev)
+    dl = torch.zeros(B, W, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (a, gx, h0)]
+    hs, hl = RGLRUScanFn.apply(*leaves)
+
+    def backward():
+        torch.autograd.grad([hs, hl], leaves, [dy, dl], retain_graph=True)
+    before = rglru_scan.route_launches["ring"]
+    backward()
+    torch.cuda.synchronize()
+    if rglru_scan.route_launches["ring"] != before + 1:
+        raise AssertionError("the RG-LRU backward did not launch the ring "
+                             "kernel")
+    rg_bwd_ms = _median_ms(backward, reps=20, head_start_cycles=4_000_000)
+    rg_plain_ms = _median_ms(lambda: rglru_scan_bwd_torch(
+        a, hs.detach(), h0, dy, dl), reps=3, warmup=1,
+        head_start_cycles=400_000_000)
+    # read a (bf16), h_seq and dy (f32); write da (bf16) and dgx (f32);
+    # h0, dh_last, dh0 (B, W) f32; 3 operations an element
+    rg_bytes = B * S * W * (2 + 4 + 4 + 2 + 4) + 3 * 4 * B * W
+    rglru_bwd = {"shape": {"B": B, "S": S, "W": W, "a_dtype": "bfloat16"},
+                 "implementation": "the ring kernel on the reversed "
+                                   "recurrence (RGLRUScanFn.backward)",
+                 "kernel_route": "ring", "ms": rg_bwd_ms,
+                 "plain_ms": rg_plain_ms, "bytes": rg_bytes,
+                 "flops": 3 * B * S * W,
+                 "bound_ms": max(rg_bytes / HBM_BYTES_PER_S,
+                                 3 * B * S * W / FP32_FLOP_PER_S) * 1e3,
+                 "bound_by": "bytes", "library_ms": None,
+                 "checked": rg_checked}
+    return {"ssd_backward": ssd_bwd, "rglru_backward": rglru_bwd}
+
+
+def _family_model(arch, n_layers=None, dtype=None, **overrides):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.api import get_model
+    cfg = get_arch(arch).full
+    cfg = dataclasses.replace(cfg, n_layers=n_layers or cfg.n_layers,
+                              dtype=dtype or cfg.dtype, **overrides)
+    return get_model(cfg)
+
+
+def _family_batches(cfg, seq, batch, seed, dtype):
+    """`SyntheticLM` tokens and labels; for the encoder-decoder also the
+    frames: seeded normal (B, enc_seq, d_model) in `dtype`, as the
+    reference's tests make them."""
+    from repro_torch.data.pipeline import SyntheticLM
+    gen = torch.Generator().manual_seed(seed)
+    for b in SyntheticLM(cfg.vocab_size, seq, batch, seed=seed):
+        if cfg.family == "encdec":
+            b["frames"] = torch.randn(batch, cfg.enc_seq, cfg.d_model,
+                                      generator=gen).to(dtype)
+        yield b
+
+
+def _expected_train_launches(cfg, n_micro, remat):
+    """{kernel: {route: launches}} of one train step of `n_micro`
+    microbatches: per microbatch each SSD call once, each RG-LRU scan
+    twice (the forward and the backward's reverse scan), each attention
+    once on the flash kernel with lse; under a remat policy each
+    forward once more (the backward recomputes the layer)."""
+    bf16 = cfg.dtype == "bfloat16"
+    again = 0 if remat == "none" else 1
+    if cfg.family == "ssm":
+        return {"ssd_scan": {"mma_sync" if bf16 else "cuda_core":
+                             n_micro * cfg.n_layers * (1 + again)}}
+    flash = ("wgmma" if bf16 and cfg.head_dim >= 64 else "cuda_core") + "+lse"
+    n_attn = {"hybrid": cfg.n_layers // 3,
+              "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+                  cfg.family, cfg.n_layers)
+    out = {"flash_attention": {flash: n_micro * n_attn * (1 + again)}}
+    if cfg.family == "hybrid":
+        out["rglru_scan"] = {"ring": n_micro * (cfg.n_layers - n_attn)
+                             * (2 + again)}
+    return out
+
+
+def _check_launches(what, cfg, n_micro, remat):
+    """Every kernel launched exactly its expected count on its route."""
+    want = _expected_train_launches(cfg, n_micro, remat)
+    launches, routes = _read_counts(), _read_routes()
+    for name, n in launches.items():
+        exp = sum(want.get(name, {}).values())
+        got_routes = {r: c for r, c in routes.get(name, {}).items() if c}
+        if n != exp or (exp and got_routes != want[name]):
+            raise AssertionError(f"{what}: {name} launched {n} times on "
+                                 f"{got_routes}, expected {want.get(name)}")
+    return launches, routes
+
+
+# arch, depth, overrides, seq, global batch, microbatch: the card-vs-CPU
+# train step at the published widths (float32); RecurrentGemma's window
+# cut to 128 so that it bites at sequence 256
+FAMILY_CROSS = [(TRAIN_ARCH, 2, {}, 512, 2, 2),
+                ("mamba2-2.7b", 2, {}, 512, 2, 1),
+                ("recurrentgemma-9b", 3, {"local_window": 128}, 256, 2, 1),
+                ("whisper-base", 2, {"n_enc_layers": 2}, 64, 2, 1)]
+
+
+def train_cross_check(dev, arch, n_layers, overrides, seq, batch, micro):
+    """One AdamW train step at the published widths and reduced depth,
+    float32, TF32 off, from the same state on the card and on the CPU:
+    the loss and grad_norm within 1e-3 relative, m and v within 1e-3 of
+    each leaf's max, the params within 1e-3 (allclose), and the updates
+    themselves (params after minus before) within 1e-3 relative plus
+    1e-2 of the learning rate, save for at most UPDATE_OFF_SHARE of the
+    entries: a gradient within rounding of 0 can flip Adam's first step,
+    of size lr. Reports how many entries' step changed sign. Every
+    kernel launched its expected count on its float32 route."""
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models.params import flatten, tree_map
+    from repro_torch.train import loop as TL
+    model = _family_model(arch, n_layers, "float32", **overrides)
+    cfg = model.cfg
+    tcfg = TrainConfig(seq_len=seq, global_batch=batch, microbatch=micro,
+                       optimizer=OptimizerConfig(warmup_steps=0))
+    card_state = TL.init_state(model, tcfg.optimizer, SEED, dev)
+    state = tree_map(lambda t: t.cpu(), card_state)
+    p0 = {p: t.clone() for p, t in flatten(state["params"])}
+    data = next(_family_batches(cfg, seq, batch, SEED, torch.float32))
+    step = TL.make_train_step(model, tcfg)
+    _zero_counts()
+    got, gm = step(card_state, to_device(data, dev))
+    torch.cuda.synchronize()
+    launches, routes = _check_launches(f"{arch} cross-check", cfg,
+                                       batch // micro, "none")
+    del card_state
+    t0 = time.perf_counter()
+    want, wm = step(state, to_device(data, "cpu"))
+    cpu_s = time.perf_counter() - t0
+    errs = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+            for k in ("loss", "grad_norm")}
+    w = dict(flatten(want))
+    worst, flips, off, n = {"opt": 0.0, "params": 0.0}, 0, 0, 0
+    lr = tcfg.optimizer.lr
+    for path, t in flatten(got):
+        a, b = t.cpu(), w[path]
+        if path.startswith("opt/"):
+            worst["opt"] = max(worst["opt"], float(
+                (a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+        elif path.startswith("params/"):
+            worst["params"] = max(worst["params"], float(
+                ((a - b).abs() / (1e-3 + 1e-3 * b.abs())).max()))
+            before = p0[path[len("params/"):]]
+            da, db = a - before, b - before
+            flips += int((da.sign() != db.sign()).sum())
+            off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * lr).sum())
+            n += b.numel()
+    if max(errs.values()) > 1e-3 or worst["opt"] > 1e-3 or (
+            worst["params"] > 1.0) or off > UPDATE_OFF_SHARE * n:
+        raise AssertionError(f"{arch} train card vs CPU: {errs}, m/v err / "
+                             f"max {worst['opt']}, params margin "
+                             f"{worst['params']}, updates off the bar {off} "
+                             f"of {n}")
+    return {"arch": arch, "n_layers": n_layers, **overrides,
+            "dtype": "float32", "seq_len": seq, "global_batch": batch,
+            "microbatch": micro, "loss": float(wm["loss"]), "rel_err": errs,
+            "mv_err_over_max": worst["opt"], "params_margin": worst["params"],
+            "update_sign_flips": flips, "updates_off_bar": off,
+            "params_total": n, "cpu_step_s": cpu_s, "launches": launches,
+            "route_launches": routes}
+
+
+# arch, depth (None: the published one), seq, global batch, microbatch,
+# remat, timed steps; the cuts are listed in each record. RecurrentGemma
+# without remat peaked at 81.4 GB (its f32 gate activations at 2 x 4,096
+# beside 45 GB of state) and ran out of memory; "dots" keeps the matmuls'
+# outputs and recomputes the rest
+FAMILY_FULL = [(TRAIN_ARCH, None, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO,
+                "none", 3),
+               ("mamba2-2.7b", None, 4096, 8, 2, "full", 2),
+               ("recurrentgemma-9b", 8, 4096, 8, 2, "dots", 2),
+               ("whisper-base", None, 448, 64, 16, "none", 2)]
+
+
+def _family_model_flops(model, batch, seq):
+    """Model FLOPs of one train step: 6 x parameters x the tokens each
+    parameter sees (the encoder's the frames, the rest the decoder
+    tokens), plus 3 x the forward's token-mixing products: the SSD's
+    chunked products, local and full attention's score and value
+    products over the (q, key) pairs each keeps."""
+    from repro_torch.models.params import flatten
+    cfg = model.cfg
+    n = {p: int(np.prod(s.shape)) for p, s in flatten(model.specs())}
+    total = sum(n.values())
+    if cfg.family == "encdec":
+        enc = sum(v for p, v in n.items() if p.startswith(("enc_layers",
+                                                           "enc_norm")))
+        frames = batch * cfg.enc_seq
+        flops = 6.0 * (enc * frames + (total - enc) * batch * seq)
+        dh = cfg.n_heads * cfg.head_dim
+        mix = 4 * batch * dh * (cfg.n_enc_layers * cfg.enc_seq ** 2
+                                + cfg.n_layers * (_attn_pairs(seq, True, 0)
+                                                  + seq * cfg.enc_seq))
+        return flops + 3 * mix
+    flops = 6.0 * total * batch * seq
+    if cfg.family == "ssm":
+        Q, H, P, N = (cfg.ssm_chunk, cfg.ssm_n_heads, cfg.ssm_head_dim,
+                      cfg.ssm_state)
+        mix = cfg.n_layers * batch * (seq // Q) * (
+            2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * P * N))
+    else:
+        hybrid = cfg.family == "hybrid"
+        mix = (cfg.n_layers // 3 if hybrid else cfg.n_layers) * (
+            4 * batch * cfg.n_heads * cfg.head_dim
+            * _attn_pairs(seq, True, cfg.local_window if hybrid else 0))
+    return flops + 3 * mix
+
+
+def train_full_width(dev, arch, n_layers, seq, batch, micro, remat, steps):
+    """Training at the published widths: seeded weights, `SyntheticLM`
+    tokens (and seeded bf16 frames for Whisper), bf16 activations, f32
+    masters, AdamW, each step spending its state. A warm-up step on one
+    microbatch under torch.profiler (where a microbatch's time goes),
+    then `steps` timed steps (each ended by reading its loss, a device
+    sync) with every kernel's count zeroed before and read after: each
+    kernel launched exactly its expected count on its bf16 route.
+    Reports step_time_s, train_tok_s, mfu, peak memory (< 80 GB), the
+    losses (finite) and the cuts."""
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.train import loop as TL
+    model = _family_model(arch, n_layers)
+    cfg = model.cfg
+    opt = OptimizerConfig(warmup_steps=1, total_steps=100)
+    tcfg = TrainConfig(seq_len=seq, global_batch=batch, microbatch=micro,
+                       remat=remat, optimizer=opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = TL.init_state(model, opt, SEED, dev)
+    step = TL.make_train_step(model, tcfg)
+    data = _family_batches(cfg, seq, batch, SEED, torch.bfloat16)
+    micro_step = TL.make_train_step(model, TrainConfig(
+        seq_len=seq, global_batch=micro, remat=remat, optimizer=opt))
+    mb = {k: v[:micro] for k, v in to_device(next(data), dev).items()}
+    out = {}
+    wall, dev_s, top = _device_profile(lambda: out.update(zip(
+        ("state", "m"), micro_step(state, mb))))
+    state = out["state"]
+    losses = [float(out["m"]["loss"])]
+    del out, mb
+    _zero_counts()
+    times = []
+    for _ in range(steps):
+        b = to_device(next(data), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    launches, routes = _check_launches(f"{arch} full width", cfg,
+                                       steps * (batch // micro), remat)
+    peak = torch.cuda.max_memory_allocated(dev)
+    del state, step, micro_step
+    if not all(np.isfinite(losses)) or peak >= DEVICE_BYTES:
+        raise AssertionError(f"{arch} train: losses {losses}, peak {peak} B")
+    step_s = float(np.median(times))
+    tokens = batch * seq
+    flops = _family_model_flops(model, batch, seq)
+    published = _family_model(arch).cfg
+    cuts = {}
+    if cfg.n_layers != published.n_layers:
+        cuts["depth"] = (f"{cfg.n_layers} of {published.n_layers} layers: "
+                         f"the f32 masters, gradients and AdamW moments of "
+                         f"all {published.n_layers} do not fit one 80 GB "
+                         f"card")
+    cuts["global_batch"] = (f"{batch} sequences of {seq} tokens a step "
+                            f"(microbatches of {micro})")
+    return {"arch": arch, "params": model.param_count(),
+            "n_layers": cfg.n_layers, "seq_len": seq, "global_batch": batch,
+            "microbatch": micro, "remat": remat, "dtype": cfg.dtype,
+            "masters": "float32", "optimizer": "adamw", "cuts": cuts,
+            "frames_per_clip": cfg.enc_seq if cfg.family == "encdec" else None,
+            "step_times_s": times, "step_time_s": step_s,
+            "tokens_per_step": tokens, "train_tok_s": tokens / step_s,
+            "model_flops_per_step": flops,
+            "mfu": flops / (step_s * BF16_FLOP_PER_S),
+            "mfu_peak": "989e12 (H100 SXM dense bf16)", "losses": losses,
+            "max_memory_allocated": peak, "launches": launches,
+            "route_launches": routes, "profile_microbatch": {
+                "tokens": micro * seq, "wall_s": wall, "device_s": dev_s,
+                "top": top}}
 
 
 def _kernel_counters():
@@ -2140,6 +2464,8 @@ def main():
     _free_device_memory()
     flash_train = timed("flash_train", flash_train_phase, dev)
     _free_device_memory()
+    scan_bwd = timed("scan_backward", scan_backward_phase, dev)
+    _free_device_memory()
     cross = timed("cross_check", cross_check, dev)
     full = timed("full_width", full_width, dev)
     _free_device_memory()
@@ -2164,10 +2490,16 @@ def main():
         serve.append(record)
         cserve = follow if follow is not None else cserve
         _free_device_memory()
-    train_cross = timed("train_cross_check", train_cross_check, dev)
-    _free_device_memory()
-    train = timed("train_full_width", train_full_width, dev)
-    _free_device_memory()
+    train_cross = []
+    for arch, *shape in FAMILY_CROSS:
+        train_cross.append(timed(f"train_cross_{arch}", train_cross_check,
+                                 dev, arch, *shape))
+        _free_device_memory()
+    train = []
+    for arch, *shape in FAMILY_FULL:
+        train.append(timed(f"train_{arch}", train_full_width, dev, arch,
+                           *shape))
+        _free_device_memory()
     trainer = timed("carbon_trainer", carbon_trainer, dev)
     _free_device_memory()
 
@@ -2178,7 +2510,7 @@ def main():
                "custom_policy": custom["launches"],
                **{r["arch"]: r["launches"] for r in serve},
                f"carbon_serve_{CARBON_SERVE_ARCH}": cserve["launches"],
-               "train_full_width": train["launches"],
+               **{f"train_{r['arch']}": r["launches"] for r in train},
                "carbon_trainer": trainer["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
@@ -2189,11 +2521,15 @@ def main():
     flash = kernels["flash_attention"]
     flash["lse_launches"] = sum(
         r["route_launches"]["flash_attention"]["wgmma+lse"]
-        for r in (train, trainer))
+        for r in (*train, trainer))
     flash["train"] = {k: v for k, v in flash_train.items() if k != "checked"}
     flash["train_checked"] = flash_train["checked"]
     flash["max_abs_err_lse"] = max(c["lse_max_abs_err"]
                                    for c in flash_train["checked"])
+    kernels["ssd_scan"]["backward"] = {
+        k: v for k, v in scan_bwd["ssd_backward"].items() if k != "checked"}
+    kernels["rglru_scan"]["backward"] = {
+        k: v for k, v in scan_bwd["rglru_backward"].items() if k != "checked"}
     kernels = list(kernels.values())
     total_s = time.perf_counter() - t_start
 
@@ -2210,7 +2546,7 @@ def main():
               "bf16_kernels_vs_plain": bf16_check, "serving": serve,
               "carbon_serve": cserve, "flash_train": flash_train,
               "train_cross_check": train_cross, "train_full_width": train,
-              "carbon_trainer": trainer}
+              "carbon_trainer": trainer, "scan_backward": scan_bwd}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     summary = {k: v for k, v in full.items() if k not in ("rows", "profile")}
@@ -2250,19 +2586,23 @@ def main():
                           for r in serve_cross],
                       "bf16_kernels_vs_plain": bf16_check,
                       "serving": serve_summary}), flush=True)
-    train_summary = {k: v for k, v in train.items()
-                     if k != "profile_microbatch"}
-    train_summary["profile_microbatch"] = {
-        k: (v[:8] if k == "top" else v)
-        for k, v in train["profile_microbatch"].items()}
+    train_summary = []
+    for r in train:
+        row = {k: v for k, v in r.items() if k != "profile_microbatch"}
+        row["profile_microbatch"] = {
+            k: (v[:8] if k == "top" else v)
+            for k, v in r["profile_microbatch"].items()}
+        train_summary.append(row)
     print(json.dumps({"training": {
         "card": card, "phase_s": phase_s, "train_full_width": train_summary,
         "train_cross_check": train_cross,
         "flash_train": {k: v for k, v in flash_train.items()
                         if k != "checked"},
         "carbon_trainer": {k: v for k, v in trainer.items()
-                           if k not in ("losses", "twin_losses")}}}),
-          flush=True)
+                           if k not in ("losses", "twin_losses")},
+        "scan_backward": {k: {kk: vv for kk, vv in v.items()
+                              if kk != "checked"}
+                          for k, v in scan_bwd.items()}}}), flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in ("checked", "sass",
                                                 "train_checked")}

@@ -172,8 +172,9 @@ class FlashAttentionFn(torch.autograd.Function):
     writing (out, lse) (the kernel on the card, its plain version on the
     CPU); the backward is the reference's `_flash_bwd_inner` in float32
     on (q, k, v, out, lse, dout) at the reference's blocks
-    (`ref.flash_bwd_torch`). Self-attention: q and kv positions both
-    start at 0.
+    (`ref.flash_bwd_torch`). q and kv positions both start at 0: a
+    self-attention, or a non-causal cross-attention (Sq != Skv; the
+    backward masks the keys it pads).
 
         out = FlashAttentionFn.apply(q, k, v, causal, window, scale)
     """

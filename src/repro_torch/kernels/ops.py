@@ -15,13 +15,13 @@ the TPU's place. ``impl``:
     reference's CPU rule: `attention_ref` for one row, ring-buffer
     positions or Sq·Skv <= 1024²; above that `attention_flash` (self-
     attention) or `attention_chunked`.
-  - `ssd`: the SSD kernel when G == 1 and ``h0 is None``; `ssd_chunked`
-    otherwise.
-  - `rglru`: the RG-LRU kernel path (`rglru_gated`); `rglru_assoc`
-    on the CPU.
-  - The SSD and RG-LRU kernels have no backward yet: on the card,
-    `ssd` and `rglru` raise `NotImplementedError` under grad (ROADMAP
-    item 15) instead of dropping to a plain path that hides the kernel.
+  - `ssd`: on the card the SSD kernel when G == 1 and ``h0 is None``,
+    and under grad `SSDScanFn` (the kernel forward, the reference's
+    autodiff of `ssd_chunked`, float32 inside, recomputed as its
+    backward); `ssd_chunked` otherwise and on the CPU.
+  - `rglru`: on the card the RG-LRU kernel path (`rglru_gated`; under
+    grad its scan is `RGLRUScanFn`, whose backward is the same kernel
+    on the reversed recurrence); `rglru_assoc` on the CPU.
   - The decode steps and the causal conv are plain torch, as they are
     plain jnp in the reference.
 """
@@ -33,7 +33,7 @@ from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
 from repro_torch.kernels.rglru_scan import rglru_gated
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan
 
 IMPLS = ("auto", "ref")
 
@@ -43,13 +43,6 @@ def _on_card(impl: str, x: torch.Tensor, op: str) -> bool:
     if impl not in IMPLS:
         raise ValueError(f"unknown {op} impl {impl!r}; expected auto or ref")
     return impl == "auto" and x.device.type == "cuda"
-
-
-def _no_backward(op: str, *tensors):
-    if R.needs_grad(*tensors):
-        raise NotImplementedError(
-            f"training through the {op} kernel needs its backward, which is "
-            f"not ported yet (ROADMAP item 15)")
 
 
 # ---------------------------------------------------------------------------
@@ -85,7 +78,8 @@ def ssd(x, dt, a_log, b, c, d, *, h0=None, chunk: int = 256,
         impl: str = "auto"):
     """SSD scan. Returns (y, h_final); see `ref.ssd_ref` for semantics."""
     if _on_card(impl, x, "ssd") and b.shape[2] == 1 and h0 is None:
-        _no_backward("SSD", x, dt, a_log, b, c, d)
+        if R.needs_grad(x, dt, a_log, b, c, d):
+            return SSDScanFn.apply(x, dt, a_log, b, c, d, chunk)
         return ssd_scan(x, dt, a_log, b, c, d, chunk=chunk)
     return R.ssd_chunked(x, dt, a_log, b, c, d, h0=h0, chunk=chunk)
 
@@ -113,7 +107,6 @@ def ssd_decode_step(x, dt, a_log, b, c, d, h):
 def rglru(x, r, i, lam, *, h0=None, impl: str = "auto"):
     """Gated linear recurrence. Returns (h_seq, h_final)."""
     if _on_card(impl, x, "rglru"):
-        _no_backward("RG-LRU", x, r, i, lam, h0)
         return rglru_gated(x, r, i, lam, h0=h0)
     return R.rglru_assoc(x, r, i, lam, h0=h0)
 

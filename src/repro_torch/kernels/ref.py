@@ -397,6 +397,26 @@ def ssd_chunked(x, dt, a_log, b, c, d, h0=None, chunk: int = 256):
     return y.to(x.dtype), h
 
 
+def ssd_chunked_bwd_torch(x, dt, a_log, b, c, d, dy, dh_final=None,
+                          chunk: int = 256) -> tuple:
+    """Gradients (dx, ddt, da_log, db, dc, dd), each in its input's dtype,
+    of `ssd_chunked` from a zero state at `chunk`, given the gradients
+    ``dy`` of y and ``dh_final`` of h_final (``None``: zero): autograd
+    through `ssd_chunked` (which computes in float32), recomputed from
+    the inputs as they are. The reference's gradient through the SSD is
+    JAX's autodiff of that function (it has no backward kernel); the
+    backward of the SSD kernel's autograd Function."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in (x, dt, a_log, b, c,
+                                                         d)]
+        y, h = ssd_chunked(*leaves, chunk=chunk)
+        outs, grads = [y], [dy.to(y.dtype)]
+        if dh_final is not None:
+            outs.append(h)
+            grads.append(dh_final.float())
+        return torch.autograd.grad(outs, leaves, grads)
+
+
 # ---------------------------------------------------------------------------
 # RG-LRU (RecurrentGemma / Griffin)
 # ---------------------------------------------------------------------------
@@ -427,6 +447,34 @@ def rglru_ref(x, r, i, lam, h0=None):
         h = a[:, t] * h + gx[:, t]
         hs.append(h)
     return torch.stack(hs, 1).to(x.dtype), h
+
+
+def rglru_scan_bwd_torch(a, h_seq, h0, dy, dh_last=None) -> tuple:
+    """Gradients (da in a's dtype, dgx, dh0 float32) of the recurrence
+    h_t = a_t·h_{t-1} + gx_t from h0, given its states ``h_seq`` (B,S,W),
+    the gradients ``dy`` of h_seq and ``dh_last`` of the last state
+    (``None``: zero): the plain reverse loop. With g_t the gradient at
+    h_t, g_{S-1} = dy_{S-1} + dh_last and g_t = a_{t+1}·g_{t+1} + dy_t
+    (the forward's recurrence run backwards, with the forward's roundings:
+    one float32 product, then one sum); then dgx_t = g_t, da_t =
+    g_t·h_{t-1} with h_{-1} = h0, and dh0 = a_0·g_0."""
+    B, S, W = a.shape
+    g = (torch.zeros(B, W, device=a.device) if dh_last is None
+         else dh_last.float())
+    one = torch.ones(B, W, device=a.device)
+    gs = [None] * S
+    for t in range(S - 1, -1, -1):
+        a_next = a[:, t + 1].float() if t + 1 < S else one
+        g = a_next * g + dy[:, t].float()
+        gs[t] = g
+    return rglru_grads_from_g(a, h_seq, h0, torch.stack(gs, 1))
+
+
+def rglru_grads_from_g(a, h_seq, h0, g) -> tuple:
+    """(da in a's dtype, dgx, dh0) of the RG-LRU recurrence from g (B,S,W)
+    float32, the gradient at each state (`rglru_scan_bwd_torch`)."""
+    h_prev = torch.cat([h0.float()[:, None], h_seq[:, :-1].float()], 1)
+    return (g * h_prev).to(a.dtype), g, a[:, 0].float() * g[:, 0]
 
 
 def rglru_assoc(x, r, i, lam, h0=None):

@@ -19,10 +19,13 @@ wrapper (`:87`): the gates are computed outside the kernel, and ``a`` is
 cast to the input's dtype before the scan (`:101`), so in bfloat16 this
 path rounds ``a`` where the reference's CPU path (`rglru_assoc`) does not.
 
-The kernel has no backward: on the card `rglru_scan` and `rglru_gated`
-raise when autograd would need one (grad enabled and an input requiring
-grad) rather than return outputs cut from the graph. Its backward, for
-RecurrentGemma training, is ROADMAP item 15.
+Training goes through `RGLRUScanFn`, whose forward is `rglru_scan` and
+whose backward is the same kernel on the time-reversed recurrence of
+the gradients (`ref.rglru_scan_bwd_torch` is its plain version). Under
+grad `rglru_gated` takes the gates by plain autograd and scans through
+the Function. The raw `rglru_scan` raises on the card when autograd
+would need a backward (grad enabled and an input requiring grad) rather
+than return outputs cut from the graph.
 
 `rglru_scan.launches` counts kernel launches and
 `rglru_scan.route_launches` those launches per route; CPU calls do not
@@ -36,7 +39,8 @@ import functools
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels.ref import needs_grad, rglru_gates
+from repro_torch.kernels.ref import (needs_grad, rglru_gates,
+                                    rglru_grads_from_g, rglru_scan_bwd_torch)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TMA_ALIGN = 8           # TMA needs 16-byte strides: W a multiple of 8
@@ -93,14 +97,6 @@ def _library():
     return lib
 
 
-def _no_grad(*tensors):
-    """Raise where autograd would need the kernel's (missing) backward."""
-    if needs_grad(*tensors):
-        raise RuntimeError("the RG-LRU kernel has no backward and would cut "
-                           "the autograd graph (its backward: ROADMAP item "
-                           "15)")
-
-
 def rglru_scan(a: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor) -> tuple:
     """a (B,S,W) float32 or bfloat16; gx (B,S,W) float32; h0 (B,W)
     float32. Returns (h_seq (B,S,W) float32, h_last (B,W) float32)."""
@@ -110,7 +106,9 @@ def rglru_scan(a: torch.Tensor, gx: torch.Tensor, h0: torch.Tensor) -> tuple:
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu tensors, got "
                          f"{a.device}")
-    _no_grad(a, gx, h0)
+    if needs_grad(a, gx, h0):
+        raise RuntimeError("the RG-LRU kernel has no backward and would cut "
+                           "the autograd graph; train through RGLRUScanFn")
     B, S, W = a.shape
     a, gx, h0 = a.contiguous(), gx.contiguous(), h0.contiguous()
     path = route(a, gx)
@@ -133,15 +131,46 @@ rglru_scan.launches = 0
 rglru_scan.route_launches = dict.fromkeys(sorted(set(ROUTES.values())), 0)
 
 
+class RGLRUScanFn(torch.autograd.Function):
+    """`rglru_scan` under autograd: (a, gx, h0) -> (h_seq, h_last). The
+    backward runs the scan itself on the reversed recurrence of the
+    gradients: a' = flip(cat(a[:, 1:], 1)), gx' = flip(dy) and h0' =
+    dh_last give g = flip(h'), the gradient at each state; then
+    `ref.rglru_grads_from_g`. It scans the ``a`` the forward scanned, in
+    its dtype, so the gradient is that of the function computed. a' and
+    gx' are fresh contiguous tensors, which the ring route can read (a
+    slice ``a[:, 1:]`` is not 16-byte aligned). On the CPU the backward
+    is the plain loop `ref.rglru_scan_bwd_torch`."""
+
+    @staticmethod
+    def forward(ctx, a, gx, h0):
+        h_seq, h_last = rglru_scan(a, gx, h0)
+        ctx.save_for_backward(a, h_seq, h0)
+        return h_seq, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        a, h_seq, h0 = ctx.saved_tensors
+        if a.device.type == "cpu":
+            return rglru_scan_bwd_torch(a, h_seq, h0, dy, dh_last)
+        B, W = h0.shape
+        a_rev = torch.cat([a[:, 1:], a.new_ones(B, 1, W)], 1).flip(1)
+        g_rev, _ = rglru_scan(a_rev.contiguous(),
+                              dy.float().flip(1).contiguous(),
+                              dh_last.float().contiguous())
+        return rglru_grads_from_g(a, h_seq, h0, g_rev.flip(1))
+
+
 def rglru_gated(x, r, i, lam, *, h0=None) -> tuple:
     """Full RG-LRU with the gates outside the scan, as the reference's
     `rglru_pallas`: x, r, i (B,S,W); lam (W,); h0 (B,W). Returns
-    (h_seq (B,S,W) in x.dtype, h_final (B,W) float32)."""
+    (h_seq (B,S,W) in x.dtype, h_final (B,W) float32). Under grad the
+    gates are plain autograd and the scan is `RGLRUScanFn`."""
     B, S, W = x.shape
-    if x.device.type == "cuda":
-        _no_grad(x, r, i, lam, h0)
     a, gx = rglru_gates(x, r, i, lam)
     h0f = (torch.zeros(B, W, device=x.device) if h0 is None
            else h0.float())
-    y, h_last = rglru_scan(a.to(x.dtype), gx, h0f)
+    a = a.to(x.dtype)
+    scan = RGLRUScanFn.apply if needs_grad(a, gx, h0f) else rglru_scan
+    y, h_last = scan(a, gx, h0f)
     return y.to(x.dtype), h_last

@@ -13,10 +13,12 @@ strided views of its conv output). On a CPU tensor it runs
 `ssd_scan_torch`, the plain version, which is also what the kernel is
 held against on the card.
 
-The kernel has no backward: on the card it raises when autograd would
-need one (grad enabled and an input requiring grad) rather than return
-outputs cut from the graph. Its backward, for Mamba-2 training, is
-ROADMAP item 15.
+Training goes through `SSDScanFn`, whose forward is `ssd_scan` and whose
+backward recomputes `ssd_chunked` (float32 inside) under autograd
+(`ref.ssd_chunked_bwd_torch`): the reference has no backward kernel and
+differentiates that plain function. The raw `ssd_scan` raises on the
+card when autograd would need a backward (grad enabled and an input
+requiring grad) rather than return outputs cut from the graph.
 
 `ssd_scan.launches` counts calls that launched the kernel and
 `ssd_scan.route_launches` those calls per route; CPU calls do not
@@ -30,7 +32,8 @@ import functools
 import torch
 
 from repro_torch import cuda_build
-from repro_torch.kernels.ref import needs_grad, ssd_chunked
+from repro_torch.kernels.ref import (needs_grad, ssd_chunked,
+                                    ssd_chunked_bwd_torch)
 
 HEAD_DIMS = (16, 32, 64)                # templates in the CUDA source
 MAX_CHUNK = 256                         # the kernel's block scan
@@ -116,7 +119,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
                          f"{x.device}")
     if needs_grad(x, dt, a_log, b, c, d):
         raise RuntimeError("the SSD kernel has no backward and would cut the "
-                           "autograd graph (its backward: ROADMAP item 15)")
+                           "autograd graph; train through SSDScanFn")
     B, S, H, P = x.shape
     N = b.shape[3]
     if P not in HEAD_DIMS or Q > MAX_CHUNK:
@@ -148,3 +151,26 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 ssd_scan.launches = 0
 ssd_scan.route_launches = dict.fromkeys(sorted(ROUTES.values()), 0)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """`ssd_scan` under autograd: (x, dt, a_log, b, c, d, chunk) -> (y,
+    h_final). The forward saves the inputs as they came (the mixer's
+    strided views stay views); the backward is
+    `ref.ssd_chunked_bwd_torch` at the same chunk, with a missing
+    gradient of y or h_final taken as zero."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_log, b, c, d, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, a_log, b, c, d)
+        ctx.chunk = chunk
+        return ssd_scan(x, dt, a_log, b, c, d, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh_final):
+        saved = ctx.saved_tensors       # unpacked once (checkpoint allows one)
+        if dy is None:
+            dy = torch.zeros_like(saved[0])
+        return (*ssd_chunked_bwd_torch(*saved, dy, dh_final,
+                                       chunk=ctx.chunk), None)

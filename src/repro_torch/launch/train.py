@@ -10,8 +10,10 @@ enforcement: duty-cycling, migration between slices, suspend/resume on a
 virtual clock of ``--sim-step-s`` seconds a step); every slice of the
 TPU v5e family maps onto the one device, as the reference's demo maps
 them when it has one device. ``--device`` defaults to ``cuda`` and fails
-without a card; ``--device cpu`` runs on the CPU. Training is ported for
-the dense and MoE families.
+without a card; ``--device cpu`` runs on the CPU. Every family but the
+encoder-decoder trains here; Whisper's batches need ``frames``, which
+`markov_stream` does not make, so it trains through
+`train.loop.make_train_step` with frames its caller builds.
 """
 from __future__ import annotations
 
@@ -32,6 +34,11 @@ def main(argv=None) -> int:
     arch = args.get("arch", "smollm-135m")
     spec = get_arch(arch)
     cfg = spec.smoke if args.get("smoke", "true") != "false" else spec.full
+    if cfg.family == "encdec":
+        raise SystemExit(f"{arch} trains on batches with 'frames' (B, "
+                         f"{cfg.enc_seq}, {cfg.d_model}), which this "
+                         f"launcher's markov_stream does not make; call "
+                         f"train.loop.make_train_step with them")
     device = resolve_device(args.get("device", "cuda"))
     model = get_model(cfg)
     tcfg = TrainConfig(

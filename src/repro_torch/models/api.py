@@ -8,9 +8,8 @@ five families: dense and MoE (`transformer`), ssm (Mamba-2), hybrid
     logits, cache = m.prefill(params, {"tokens": tokens}, pad_to=n)
     logits, cache = m.decode(params, cache, tokens)
 
-An encdec prefill also takes ``batch["frames"]`` (B, enc_seq, d_model).
-`loss` (training) is ported for the dense and MoE families; the others
-raise `NotImplementedError` naming ROADMAP item 15.
+An encdec prefill and loss also take ``batch["frames"]`` (B, enc_seq,
+d_model). `loss` (training) works for all five families.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder backbone (the reference's
-`src/repro/models/encdec.py`): parameter specs, encoder, prefill and
-decode.
+`src/repro/models/encdec.py`): parameter specs, encoder, training loss,
+prefill and decode.
 
 The audio frontend is a stub, as in the reference: a prefill takes
 precomputed frame embeddings ``batch["frames"]`` (B, enc_seq, d_model)
@@ -16,9 +16,11 @@ builds its position row with the reference's own expression.
 The prefill's attention calls (the encoder's non-causal self-attention
 over the frames, the decoder's causal self-attention, the cross-attention
 of the prompt rows against the encoder memory) take the flash kernel on
-the card; a decode step's single-row calls take the plain path. The
-decode step writes the new key and value into the self-attention cache
-in place; the cross-attention cache is written once, by the prefill.
+the card, and so do the training loss's (`loss_fn`, under grad through
+`FlashAttentionFn`); a decode step's single-row calls take the plain
+path. The decode step writes the new key and value into the
+self-attention cache in place; the cross-attention cache is written
+once, by the prefill.
 """
 from __future__ import annotations
 
@@ -73,22 +75,27 @@ def prepare(cfg: ModelConfig, params: dict) -> dict:
     return T.prepare(cfg, params, stacks=("enc_layers", "dec_layers"))
 
 
-def encode(cfg: ModelConfig, params: dict,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, enc_seq, D) -> memory (B, enc_seq, D)."""
+def encode(cfg: ModelConfig, params: dict, frames: torch.Tensor,
+           remat: str = "none") -> torch.Tensor:
+    """frames (B, enc_seq, D) -> memory (B, enc_seq, D); each layer under
+    the `remat` policy (`transformer.maybe_remat`)."""
     dtype = DTYPES[cfg.dtype]
     S = frames.shape[1]
     pos = L.sinusoidal_positions(S, cfg.d_model, frames.device).to(dtype)
     x = frames.to(dtype) + pos[None]
-    enc = T.run_layers(cfg, params, "enc_layers")
-    for i in range(cfg.n_enc_layers):
-        lp = T.layer(enc, i)
+
+    def body(x, lp):
         h = L.apply_norm(x, lp["ln1"], cfg.norm_eps)
         q, k, v = L.qkv_project(cfg, lp["attn"], h, None)
         o = L.attention(q, k, v, causal=False, impl=cfg.attn_impl)
         x = x + L.output_project(cfg, lp["attn"], o)
-        x = x + L.mlp(L.apply_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
-                      cfg.mlp_variant, dtype)
+        return x + L.mlp(L.apply_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
+                         cfg.mlp_variant, dtype)
+
+    step = T.maybe_remat(body, remat)
+    for lp in T.unbind_layers(T.run_layers(cfg, params, "enc_layers"),
+                              cfg.n_enc_layers):
+        x = step(x, lp)
     return L.apply_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
@@ -130,10 +137,34 @@ def _decoder_embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return x + pos
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "none"):
-    raise NotImplementedError("the encoder-decoder training loss is not "
-                              "ported yet (ROADMAP.md Queue 1 item 15, "
-                              "training)")
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            remat: str = "none") -> tuple:
+    """(loss, {"ce_loss"}): encode ``batch["frames"]``, run the decoder
+    over ``batch["tokens"]`` (causal self-attention, cross-attention to
+    the encoder's memory), each layer of both under the `remat` policy;
+    the chunked cross-entropy against ``batch["labels"]``."""
+    memory = encode(cfg, params, batch["frames"], remat=remat)
+    tokens = batch["tokens"]
+    x = _decoder_embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=x.device)
+    dtype = DTYPES[cfg.dtype]
+
+    def body(x, lp, memory):
+        h = L.apply_norm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = L.qkv_project(cfg, lp["attn"], h, positions)
+        o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        x = x + L.output_project(cfg, lp["attn"], o)
+        x, _ = _cross_attend(cfg, lp, x, memory=memory)
+        return x + L.mlp(L.apply_norm(x, lp["ln2"], cfg.norm_eps), lp["mlp"],
+                         cfg.mlp_variant, dtype)
+
+    step = T.maybe_remat(body, remat)
+    for lp in T.unbind_layers(T.run_layers(cfg, params, "dec_layers"),
+                              cfg.n_layers):
+        x = step(x, lp, memory)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
+    loss = T.chunked_ce_loss(cfg, params, x, batch["labels"])
+    return loss, {"ce_loss": loss}
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict,

@@ -2,8 +2,10 @@
 (the reference's `src/repro/models/mamba2.py`).
 
 Block: in_proj -> [z | xBC | dt]; causal depthwise conv over xBC; the
-SSD scan over heads (`ops.ssd`: the CUDA kernel in a prefill on the
-card); gated RMSNorm; out_proj. Decode keeps O(1) state per layer: the
+SSD scan over heads (`ops.ssd`: the CUDA kernel on the card, under
+grad inside its autograd Function); gated RMSNorm; out_proj. `loss_fn`
+trains it as the dense module's does (the layers under the remat
+policy, the chunked cross-entropy). Decode keeps O(1) state per layer: the
 conv history (K-1 steps) and the SSD state (H, P, N) in float32.
 
 As in the dense module, the layers are a Python loop over parameters
@@ -160,9 +162,29 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     return logits, {"conv": conv, "ssm": ssm, "pos": int(cache["pos"]) + 1}
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "none"):
-    raise NotImplementedError("the Mamba-2 training loss is not ported yet "
-                              "(ROADMAP.md Queue 1 item 15, training)")
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            remat: str = "none") -> tuple:
+    """tokens (B,S) -> (final hidden states (B,S,D) pre-unembed, 0): the
+    layers, each under the `remat` policy (`transformer.maybe_remat`)."""
+    x = T.embed_tokens(cfg, params, tokens)
+
+    def body(x, lp):
+        y, _, _ = _mixer_seq(cfg, lp, L.apply_norm(x, lp["ln"], cfg.norm_eps))
+        return x + y
+
+    step = T.maybe_remat(body, remat)
+    for lp in T.unbind_layers(T.run_layers(cfg, params), cfg.n_layers):
+        x = step(x, lp)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            remat: str = "none") -> tuple:
+    """(loss, {"ce_loss"}): the chunked cross-entropy of `forward`."""
+    x, _ = forward(cfg, params, batch["tokens"], remat=remat)
+    loss = T.chunked_ce_loss(cfg, params, x, batch["labels"])
+    return loss, {"ce_loss": loss}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

@@ -4,8 +4,10 @@ attention (the reference's `src/repro/models/rglru.py`).
 The layer pattern (rec, rec, attn) runs as ``super`` superlayers (12 for
 the 9B), then ``trail`` recurrent blocks (2 for the 9B: 38 = 12·3 + 2).
 Every temporal-mixing block is followed by its own GeGLU MLP residual
-block. In a prefill on the card the recurrence runs the RG-LRU kernel
-(`ops.rglru`) and the attention the flash kernel with the local window.
+block. On the card the recurrence runs the RG-LRU kernel (`ops.rglru`)
+and the attention the flash kernel with the local window, in a prefill
+and, under grad, inside their autograd Functions (`loss_fn`: the blocks
+under the remat policy, the chunked cross-entropy).
 
 Decode state is O(1) in the sequence: per recurrent block the RG-LRU
 state and the conv history, per attention block a ring KV cache of
@@ -240,9 +242,41 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     return logits, {**cache, "pos": pos + 1}
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, remat: str = "none"):
-    raise NotImplementedError("the RecurrentGemma training loss is not ported yet "
-                              "(ROADMAP.md Queue 1 item 15, training)")
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
+            remat: str = "none") -> tuple:
+    """tokens (B,S) -> (final hidden states (B,S,D) pre-unembed, 0): the
+    superlayers, then the trailing recurrent blocks, each under the
+    `remat` policy (`transformer.maybe_remat`)."""
+    S = tokens.shape[1]
+    x = T.embed_tokens(cfg, params, tokens)
+    positions = torch.arange(S, device=x.device)
+    n_super, n_trail = _counts(cfg)
+
+    def super_body(x, lp):
+        x, _ = rec_block_seq(cfg, lp["rec1"], x)
+        x, _ = rec_block_seq(cfg, lp["rec2"], x)
+        return attn_block_seq(cfg, lp["attn"], x, positions)[0]
+
+    def trail_body(x, lp):
+        return rec_block_seq(cfg, lp, x)[0]
+
+    for key, n, body in (("super", n_super, super_body),
+                         ("trail", n_trail, trail_body)):
+        if not n:
+            continue
+        step = T.maybe_remat(body, remat)
+        for lp in T.unbind_layers(T.run_layers(cfg, params, key), n):
+            x = step(x, lp)
+    x = L.apply_norm(x, params["final_norm"], cfg.norm_eps)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
+            remat: str = "none") -> tuple:
+    """(loss, {"ce_loss"}): the chunked cross-entropy of `forward`."""
+    x, _ = forward(cfg, params, batch["tokens"], remat=remat)
+    loss = T.chunked_ce_loss(cfg, params, x, batch["labels"])
+    return loss, {"ce_loss": loss}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:

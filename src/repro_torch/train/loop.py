@@ -8,10 +8,14 @@ activation dtype inside the loss, as the reference casts with
 ``cast_weights``), float32 optimizer moments, an int32 step and, with
 compression, float32 error feedback. `make_train_step` builds the
 function the carbon-aware trainer drives: microbatches run one after
-another in a Python loop (the reference's ``lax.scan``), summing float32
-gradients, which are then divided by their count; then compression,
-then the optimizer update. The step is functional: it returns a new
-state and leaves the one it was given as it was.
+another in a Python loop (the reference's ``lax.scan``), each backward
+adding its float32 gradients into the masters' ``.grad`` (the sum of
+the reference's scan), which are then divided by their count; then
+compression, then the optimizer update. The step spends the state it
+is given, as the reference jits its step with the state donated: AdamW
+writes the new parameters and moments into it, which a model whose
+AdamW state fills most of the card needs. A caller that keeps the old
+state clones it first.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from repro_torch.config import OptimizerConfig, TrainConfig
 from repro_torch.data.pipeline import to_device
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
-from repro_torch.models.params import DTYPES, ParamSpec, flatten, tree_map, unflatten
+from repro_torch.models.params import DTYPES, ParamSpec, flatten, tree_map
 from repro_torch.train import compression as COMP
 from repro_torch.train import optimizer as OPT
 
@@ -71,43 +75,57 @@ def init_state(model: Model, opt_cfg: OptimizerConfig, seed=0,
 # Train step
 # ---------------------------------------------------------------------------
 
+def _backward(model: Model, remat: str, leaves: dict, batch: dict):
+    """(loss, metrics) of the model's loss at `leaves` (tensors requiring
+    grad), its gradients added into the leaves' ``.grad``."""
+    with torch.enable_grad():
+        loss, metrics = model.loss(leaves, batch, remat=remat)
+        loss.backward()
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}
+
+
+def _grad_leaves(params: dict) -> dict:
+    return tree_map(lambda t: t.detach().requires_grad_(), params)
+
+
+def _grads(leaves: dict) -> dict:
+    """The leaves' ``.grad`` as a tree; every leaf must have one."""
+    for path, t in flatten(leaves):
+        if t.grad is None:
+            raise RuntimeError(f"no gradient reached the parameter {path}")
+    return tree_map(lambda t: t.grad, leaves)
+
+
 def _value_and_grad(model: Model, remat: str, params: dict, batch: dict):
     """((loss, metrics), grads) of the model's loss at `params`; the
     gradients have the parameters' dtypes."""
-    paths = [p for p, _ in flatten(params)]
-    leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
-    with torch.enable_grad():
-        loss, metrics = model.loss(leaves, batch, remat=remat)
-        grads = torch.autograd.grad(loss, [t for _, t in flatten(leaves)])
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return (loss.detach(), metrics), unflatten(params, dict(zip(paths, grads)))
+    leaves = _grad_leaves(params)
+    out = _backward(model, remat, leaves, batch)
+    return out, _grads(leaves)
 
 
 def make_train_step(model: Model, cfg: TrainConfig) -> Callable:
     """``train_step(state, batch) -> (new_state, metrics)``; `batch` holds
-    tensors on the state's device. metrics: loss, the model's metrics
-    (of the last microbatch), grad_norm and lr, as 0-d tensors."""
+    tensors on the state's device (an encoder-decoder's ``frames`` are
+    split into microbatches like the tokens). metrics: loss, the model's
+    metrics (of the last microbatch), grad_norm and lr, as 0-d tensors.
+    The state passed in is spent: the new state holds its tensors."""
     opt_cfg = cfg.optimizer
     update = OPT.UPDATES[opt_cfg.name]
 
     def compute_grads(params, batch):
         if cfg.microbatch and cfg.microbatch < cfg.global_batch:
             n_micro = cfg.global_batch // cfg.microbatch
-            gsum = lsum = metrics = None
+            leaves = _grad_leaves(params)
+            lsum = None
             for i in range(n_micro):
                 mb = {k: v[i * cfg.microbatch:(i + 1) * cfg.microbatch]
                       for k, v in batch.items()}
-                (loss, metrics), g = _value_and_grad(model, cfg.remat,
-                                                     params, mb)
-                g = tree_map(lambda t: t.float(), g)
-                if gsum is None:
-                    gsum, lsum = g, loss
-                else:
-                    gsum = unflatten(gsum, {p: a + b for (p, a), (_, b) in
-                                            zip(flatten(gsum), flatten(g))})
-                    lsum = lsum + loss
+                loss, metrics = _backward(model, cfg.remat, leaves, mb)
+                lsum = loss if lsum is None else lsum + loss
             divisor = torch.tensor(float(n_micro), device=lsum.device)
-            grads = tree_map(lambda t: t / divisor, gsum)
+            grads = tree_map(lambda t: t.float().div_(divisor),
+                             _grads(leaves))
             return (lsum / divisor, metrics), grads
         return _value_and_grad(model, cfg.remat, params, batch)
 
@@ -136,7 +154,8 @@ def run(model: Model, cfg: TrainConfig, data_iter, *, device="cuda",
         state: Optional[dict] = None,
         step_callback: Optional[Callable] = None) -> dict:
     """Train for cfg.steps; returns {"state", "history"}. Each step is
-    timed to a device sync (`step_time_s`); step_callback gets (i, state,
+    timed to a device sync (`step_time_s`) and spends the state (a
+    `state` passed in is spent); step_callback gets (i, state,
     metrics)."""
     dev = resolve_device(device)
     if state is None:

@@ -6,7 +6,11 @@ of float32 tensors. All master math is float32 in the reference's
 expression order (``b1 ** t`` a float32 power, ``mhat / (sqrt(vhat) +
 eps) + wd·p``), so the CPU agrees with it to float32 rounding.
 `torch.optim.AdamW` is no substitute: it decays the weights apart from
-the Adam step. Updates are functional: they return new trees.
+the Adam step. An update spends the trees it is given, as the reference
+jits its train step with the state donated: AdamW writes the new values
+into the parameters, the moments and the gradients, in slices of at
+most `SLICE` entries, so a model whose state fills most of the card
+still takes its step; SGD returns new trees.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from repro_torch.config import OptimizerConfig
 from repro_torch.models.params import flatten, tree_map, unflatten
 
 F32 = torch.float32
+SLICE = 1 << 24         # entries an AdamW update works on at a time
 
 
 def _f32(x, like: torch.Tensor) -> torch.Tensor:
@@ -68,11 +73,15 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    # an IEEE quotient: `float / tensor` is a reciprocal times the float
+    return torch.clamp(torch.div(_f32(max_norm, norm),
+                                 torch.clamp(norm, min=1e-9)), max=1.0)
+
+
 def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
     norm = global_norm(grads)
-    # an IEEE quotient: `float / tensor` is a reciprocal times the float
-    scale = torch.clamp(torch.div(_f32(max_norm, norm),
-                                  torch.clamp(norm, min=1e-9)), max=1.0)
+    scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: g.to(F32) * scale, grads), norm
 
 
@@ -83,30 +92,50 @@ def _zip(fn, params, *trees):
             for path, p in flatten(params)}
 
 
+def _slices(*leaves):
+    """The leaves (one shape) as views along dim 0, each of at most
+    `SLICE` entries where rows allow (an elementwise update of the views
+    is one of the leaves)."""
+    t = leaves[0]
+    if t.dim() == 0 or t.numel() <= SLICE:
+        return [leaves]
+    rows = max(1, SLICE // (t.numel() // t.shape[0]))
+    return zip(*(x.split(rows, 0) for x in leaves))
+
+
+def _adamw_(cfg: OptimizerConfig, lr, bc1, bc2, p, g, m, v):
+    """One AdamW step in place: p, m and v take their new values and g is
+    spent. Each operation is the reference's, in its order:
+    m = b1·m + (1 - b1)·g; v = b2·v + (1 - b2)·g²; p -= lr·(m/bc1 /
+    (sqrt(v/bc2) + eps) + wd·p)."""
+    v.mul_(cfg.b2).add_(torch.square(g).mul_(1.0 - cfg.b2))
+    m.mul_(cfg.b1).add_(g.mul_(1.0 - cfg.b1))
+    den = (v / bc2).sqrt_().add_(cfg.eps)
+    delta = (m / bc1).div_(den).add_(cfg.weight_decay * p.to(F32))
+    p.sub_(delta.mul_(lr))
+
+
 def adamw_update(cfg: OptimizerConfig, grads, opt_state, params, step):
-    """Returns (new_params, new_opt_state, metrics). All f32 master math."""
+    """Returns (new_params, new_opt_state, metrics). All f32 master math.
+    The new values are written into `params`, ``opt_state``'s moments and
+    `grads` (all spent), which are returned."""
+    grads = tree_map(lambda g: g.to(F32), grads)
+    gnorm = global_norm(grads)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
-    else:
-        grads = tree_map(lambda g: g.to(F32), grads)
-        gnorm = global_norm(grads)
+        scale = _clip_scale(gnorm, cfg.grad_clip)
+        for _, g in flatten(grads):
+            g.mul_(scale)
     lr = lr_at(cfg, step)
     t = step.to(F32) + 1.0
     bc1 = 1.0 - torch.pow(_f32(cfg.b1, t), t)
     bc2 = 1.0 - torch.pow(_f32(cfg.b2, t), t)
-
-    def upd(p, g, m, v):
-        m = cfg.b1 * m + (1.0 - cfg.b1) * g
-        v = cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g)
-        mhat = m / bc1
-        vhat = v / bc2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(F32)
-        return (p.to(F32) - lr * delta).to(p.dtype), m, v
-
-    out = _zip(upd, params, grads, opt_state["m"], opt_state["v"])
-    new_p, new_m, new_v = (unflatten(params, {k: o[i] for k, o in out.items()})
-                           for i in range(3))
-    return new_p, {"m": new_m, "v": new_v}, {"grad_norm": gnorm, "lr": lr}
+    flat = [dict(flatten(tree)) for tree in (grads, opt_state["m"],
+                                             opt_state["v"])]
+    for path, p in flatten(params):
+        for views in _slices(p, *(f[path] for f in flat)):
+            _adamw_(cfg, lr, bc1, bc2, *views)
+    return params, {"m": opt_state["m"], "v": opt_state["v"]}, {
+        "grad_norm": gnorm, "lr": lr}
 
 
 # ---------------------------------------------------------------------------

@@ -7,8 +7,10 @@ with traffic and energy folded into the scan), the scenario matrix and a
 custom policy's host decisions card against CPU, card-vs-CPU serving
 (SmolLM, Mamba-2, RecurrentGemma, OLMoE's routing, Whisper), and
 training: the flash kernel's log-sum-exp and gradients through
-`FlashAttentionFn`, the kernel wrappers' refusal to cut the autograd
-graph, and a train step card against CPU. They skip without a GPU. On the
+`FlashAttentionFn`, the SSD and RG-LRU kernels under autograd
+(`SSDScanFn`, `RGLRUScanFn` with its reverse scan on the ring route),
+the raw wrappers' refusal to cut the autograd graph, and a train step
+card against CPU for each family. They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
 ``PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py``."""
 import numpy as np
@@ -637,10 +639,10 @@ def test_mha_trains_through_the_flash_kernel(cuda):
 
 
 def test_kernel_wrappers_refuse_to_cut_the_graph(cuda):
-    """Each CUDA kernel wrapper raises under grad rather than return an
-    output detached from the graph; `ops.ssd` and `ops.rglru` raise
-    NotImplementedError naming ROADMAP item 15 (their backward); without
-    grad they run as before."""
+    """Each raw CUDA kernel wrapper raises under grad rather than return
+    an output detached from the graph; `ops.ssd`, `ops.rglru` and
+    `rglru_gated` train through the kernels' autograd Functions (their
+    outputs carry a grad_fn); without grad the wrappers run as before."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.rglru_scan import rglru_gated, rglru_scan
@@ -656,42 +658,144 @@ def test_kernel_wrappers_refuse_to_cut_the_graph(cuda):
     a_log, b, c, d = rand(4), rand(1, 64, 1, 16), rand(1, 64, 1, 16), rand(4)
     with pytest.raises(RuntimeError, match="no backward"):
         ssd_scan(x, dt, a_log, b, c, d, chunk=32)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ops.ssd(x, dt, a_log, b, c, d, chunk=32)
+    before = ssd_scan.launches
+    y, _ = ops.ssd(x, dt, a_log, b, c, d, chunk=32)
+    assert y.grad_fn is not None and ssd_scan.launches == before + 1
     a = torch.rand(2, 16, 64, device=cuda).requires_grad_()
     gx, h0 = rand(2, 16, 64), torch.zeros(2, 64, device=cuda)
     with pytest.raises(RuntimeError, match="no backward"):
         rglru_scan(a, gx, h0)
     xr = rand(2, 16, 64).requires_grad_()
     r, i, lam = rand(2, 16, 64), rand(2, 16, 64), rand(64)
-    with pytest.raises(RuntimeError, match="no backward"):
-        rglru_gated(xr, r, i, lam)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ops.rglru(xr, r, i, lam)
+    before = rglru_scan.launches
+    for hs, _ in (rglru_gated(xr, r, i, lam), ops.rglru(xr, r, i, lam)):
+        assert hs.grad_fn is not None
+    assert rglru_scan.launches == before + 2
     with torch.no_grad():
         flash_attention(q, q, q)
         ssd_scan(x, dt, a_log, b, c, d, chunk=32)
         rglru_gated(xr, r, i, lam)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b"])
+# tests/test_kernels.py's SSD cases (B, S, H, P, N, chunk), then a chunk
+# of 256 whose masked triangle overflows
+SSD_GRAD_CASES = [(2, 64, 4, 16, 32, 16, False),
+                  (1, 128, 8, 32, 64, 32, False),
+                  (2, 96, 4, 64, 16, 32, False),
+                  (1, 512, 2, 64, 128, 256, True)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SSD_GRAD_CASES, ids=str)
+def test_ssd_scan_fn_grads_on_card(cuda, case, dtype):
+    """`SSDScanFn` on the card: one kernel launch on the dtype's route;
+    y within the kernel bars of the plain version; the six gradients
+    (with a gradient of h_final) within 1e-6 of each one's max |g| of
+    autograd through `ssd_chunked` on the same inputs, all finite. The
+    backward is that function's autodiff, recomputed from the inputs, so
+    the gradients check the Function's wiring; the launch and y check
+    the kernel."""
+    from repro_torch.kernels.ref import ssd_chunked
+    from repro_torch.kernels.ssd_scan import ROUTES, SSDScanFn, ssd_scan
+    B, S, H, P, N, Q, overflow = case
+    dt = getattr(torch, dtype)
+    args = _ssd_inputs(case[:6], dt, cuda, seed=sum(case[:6]),
+                       overflow=overflow)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    dy = torch.randn(B, S, H, P, generator=gen, device=cuda).to(dt)
+    dh = torch.randn(B, H, P, N, generator=gen, device=cuda)
+    before = ssd_scan.route_launches[ROUTES[dt]]
+    leaves = [t.clone().requires_grad_() for t in args]
+    y, h = SSDScanFn.apply(*leaves, Q)
+    got = torch.autograd.grad([y, h], leaves, [dy, dh])
+    assert ssd_scan.route_launches[ROUTES[dt]] == before + 1
+    plain = [t.clone().requires_grad_() for t in args]
+    py, ph = ssd_chunked(*plain, chunk=Q)
+    want = torch.autograd.grad([py, ph], plain, [dy, dh])
+    tol = 5e-3 if dtype == "float32" else 1e-1
+    torch.testing.assert_close(y.float(), py.float(), atol=tol, rtol=tol)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and bool(torch.isfinite(g).all())
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", RGLRU_CASES, ids=str)
+def test_rglru_scan_fn_backward_on_card(cuda, case, dtype):
+    """`RGLRUScanFn` on the card: two launches (forward, and the reverse
+    scan of the backward) on the route of the shape; on the ring route
+    (da, dgx, dh0) bit-equal to the plain reverse loop
+    `rglru_scan_bwd_torch` on the same inputs, on the column route
+    within 1e-5 of max |g|; in float32 `rglru_gated`'s gradients within
+    1e-5 of max |g| of autograd through `rglru_ref`."""
+    from repro_torch.kernels.ref import (rglru_gates, rglru_ref,
+                                         rglru_scan_bwd_torch)
+    from repro_torch.kernels.rglru_scan import (RGLRUScanFn, rglru_gated,
+                                                rglru_scan, route)
+    B, S, W = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(sum(case))
+
+    def f(*shape):
+        return torch.as_tensor(rng.normal(size=shape), dtype=torch.float32,
+                               device=cuda)
+    x, r, i, lam, h0, dy, dl = (f(B, S, W), f(B, S, W), f(B, S, W), f(W),
+                                f(B, W), f(B, S, W), f(B, W))
+    a, gx = rglru_gates(x.to(dt), r.to(dt), i.to(dt), lam)
+    a = a.to(dt)
+    path = route(a, gx)
+    before = rglru_scan.route_launches[path]
+    leaves = [t.clone().requires_grad_() for t in (a, gx, h0)]
+    hs, hl = RGLRUScanFn.apply(*leaves)
+    got = torch.autograd.grad([hs, hl], leaves, [dy, dl])
+    assert rglru_scan.route_launches[path] == before + 2
+    want = rglru_scan_bwd_torch(a, hs.detach(), h0, dy, dl)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        if path == "ring":
+            assert torch.equal(g, w)
+        else:
+            scale = float(w.float().abs().max())
+            assert float((g.float() - w.float()).abs().max()) <= 1e-5 * scale
+    if dtype == "float32":
+        leaves = [t.clone().requires_grad_() for t in (x, r, i, lam, h0)]
+        got = torch.autograd.grad(rglru_gated(*leaves[:4], h0=leaves[4]),
+                                  leaves, [dy, dl])
+        plain = [t.clone().requires_grad_() for t in (x, r, i, lam, h0)]
+        want = torch.autograd.grad(rglru_ref(*plain[:4], h0=plain[4]),
+                                   plain, [dy, dl])
+        for g, w in zip(got, want):
+            scale = float(w.abs().max())
+            assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.parametrize("arch", ["smollm-135m", "olmoe-1b-7b",
+                                  "mamba2-2.7b", "recurrentgemma-9b",
+                                  "whisper-base"])
 def test_train_step_on_card_equals_cpu(cuda, arch):
-    """One AdamW train step (2 microbatches) of the smollm and OLMoE smoke
-    configs in float32 from the same state on the card and on the CPU
-    (OLMoE: the accumulating dispatch's backward and `lb_loss` under
-    `FlashAttentionFn`): the loss and grad_norm within 1e-3 relative,
+    """One AdamW train step (2 microbatches) of each family's smoke config
+    in float32 from the same state on the card and on the CPU (OLMoE:
+    the accumulating dispatch's backward and `lb_loss` under
+    `FlashAttentionFn`; Mamba-2: `SSDScanFn`; RecurrentGemma:
+    `RGLRUScanFn` and the windowed flash; Whisper: the encoder's,
+    decoder's and cross-attention's flash, frames split into the
+    microbatches): the loss and grad_norm within 1e-3 relative,
     the first and second moments within 1e-3 of each leaf's max, the
     params within 1e-3 (allclose), and the updates themselves (params
     after minus before): within 1e-3 relative plus 1e-2 of the learning
     rate, save for at most 1e-4 of the entries (a gradient within
     rounding of 0 flips Adam's first step, of size lr); every attention
-    of the card's step launched the flash kernel with lse."""
+    of the card's step launched the flash kernel with lse, every SSD
+    call its kernel, every RG-LRU scan its kernel forward and back."""
     import dataclasses
 
     from repro_torch.config import OptimizerConfig, TrainConfig
     from repro_torch.configs import get_arch
     from repro_torch.data.pipeline import SyntheticLM, to_device
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rglru_scan import rglru_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.models.api import get_model
     from repro_torch.models.params import flatten, tree_map
     from repro_torch.train import loop as TL
@@ -703,17 +807,28 @@ def test_train_step_on_card_equals_cpu(cuda, arch):
     state = TL.init_state(model, tcfg.optimizer, 0, "cpu")
     card_state = tree_map(lambda t: t.to(cuda), state)
     batch = next(iter(SyntheticLM(cfg.vocab_size, 64, 4, seed=2)))
+    if cfg.family == "encdec":
+        batch["frames"] = np.random.default_rng(2).normal(
+            size=(4, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    # (counter, route) -> launches a microbatch
+    n_attn = {"ssm": 0, "hybrid": cfg.n_layers // 3,
+              "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
+                  cfg.family, cfg.n_layers)
+    per_micro = {(flash_attention, "cuda_core+lse"): n_attn,
+                 (ssd_scan, "cuda_core"): cfg.n_layers * (cfg.family == "ssm"),
+                 (rglru_scan, "ring"): 2 * (cfg.n_layers - n_attn) * (
+                     cfg.family == "hybrid")}
+    before = {k: k[0].route_launches[k[1]] for k in per_micro}
     step = TL.make_train_step(model, tcfg)
-    before = flash_attention.route_launches["cuda_core+lse"]
     got, gm = step(card_state, to_device(batch, cuda))
     torch.cuda.synchronize()
-    assert flash_attention.route_launches["cuda_core+lse"] == (
-        before + 2 * cfg.n_layers)
+    for k, n in per_micro.items():
+        assert k[0].route_launches[k[1]] == before[k] + 2 * n, k[1]
+    p0 = {p: t.clone() for p, t in flatten(state["params"])}
     want, wm = step(state, to_device(batch, "cpu"))
     for k in ("loss", "grad_norm"):
         assert abs(float(gm[k]) - float(wm[k])) <= 1e-3 * abs(float(wm[k]))
     w = dict(flatten(want))
-    p0 = dict(flatten(state["params"]))
     off = n = 0
     for path, t in flatten(got):
         ref = w[path]

@@ -150,8 +150,15 @@ def test_init_cache_and_loss_fn():
     assert tuple(cache["k"].shape) == (2, 2, 4, 16, 16)
     assert tuple(cache["cv"].shape) == (2, 2, 4, 32, 16)
     assert not cache["ck"].any()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 15"):
-        ENCDEC.loss_fn(model.cfg, {}, {})
+    cfg = model.cfg
+    params = model.init(0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 8))),
+             "labels": torch.tensor(rng.integers(0, cfg.vocab_size, (2, 8))),
+             "frames": torch.tensor(rng.normal(
+                 size=(2, cfg.enc_seq, cfg.d_model)), dtype=torch.float32)}
+    loss, metrics = ENCDEC.loss_fn(model.cfg, params, batch)
+    assert bool(torch.isfinite(loss)) and metrics == {"ce_loss": loss}
 
 
 def test_encoder_matches_reference():
