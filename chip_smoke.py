@@ -141,7 +141,9 @@ raising on failure so the run exits non-zero:
      within 1e-3 of each leaf's max, params within 1e-3, the updates
      (params after minus before) within 1e-3 relative + 1e-2 of the
      learning rate save for at most 1e-4 of the entries; each kernel's
-     launches on its float32 route exact;
+     launches on its float32 route exact; each run prints the leaf with
+     the worst card-vs-CPU error of m, of v and of the gradients (m is
+     (1 - b1) x the clipped gradient after this first step);
   9. training at the published widths, seeded weights, `SyntheticLM`
      tokens (and seeded bf16 frames), bf16 activations, f32 masters,
      AdamW, each step spending its state: a warm-up step on one
@@ -161,10 +163,28 @@ raising on failure so the run exits non-zero:
      batch 8, virtual clock, 6 steps: a duty below 1, a migration
      between two slices (both this card) and a suspend/resume; every restore
      bit-equal to its checkpoint, every loss equal to an uninterrupted
-     job's, average C(t) within 1.1 x the target.
+     job's, average C(t) within 1.1 x the target;
+  11. the single-card dry run (`python -m repro_torch.launch.dryrun
+     --all`): the 40 cells, 32 run and 8 skipped with the reference's
+     reasons; each cell's memory from its abstract trees with
+     ``cards_needed``, its model FLOPs (equal to the host formula's),
+     and its marginal-layer probes at the published widths (FLOPs > 0;
+     a probe whose parameters and state do not fit the card says so);
+     the cost counter's calls equal the kernels' launches; then the
+     roofline of the cells (`repro_torch.launch.roofline`), SmolLM-135M
+     at train_4k with phase 9's step time and an mfu equal to phase 9's;
+  12. the reference's entry points (`repro_torch.examples`) on the card
+     at the reference's defaults, each held to its own verdict
+     (quickstart's loss falls; carbon_train's average C(t) <= its
+     target over 200 steps; the elasticity forecast saves carbon within
+     the oracle's bound with no budget violation; carbon routing emits
+     less per request; the 10,080-container placed sweep equals the
+     CPU's rows), then the sweep examples at a reduced size, card
+     against CPU, summaries equal.
 
 Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7,
-7b, 9 (each model's timed steps) and 10 are the main paths: every
+7b, 9 (each model's timed steps), 10, 11 and 12 (the defaults' runs)
+are the main paths (11 and 12 are counted, not pinned): every
 kernel's launch counter is set to 0
 just before each path and read just after; each path must have launched
 exactly its kernels (T admission launches in each sweep, one per epoch;
@@ -181,8 +201,9 @@ launches with lse a step in 10) and no others, every flash launch on
 the wgmma route (with lse in 9 and 10), every SSD launch on the
 mma_sync route and every RG-LRU launch on the ring route.
 
-Prints the nvidia-smi line, one line of phase results, the ``kernels``
-JSON line, and last ``{"ok": true, "device": {...}}``. The full record
+Prints the nvidia-smi line, one line of phase results, the training
+line, the roofline table, the dry-run and examples line, the
+``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``. The full record
 goes to ``chiprun_out/chip_smoke.json``.
 """
 import gc
@@ -203,9 +224,6 @@ N_TARGETS = 10
 FULL_TRACES = 100_000           # x N_TARGETS = 1,000,000 containers
 LAYERED_CROSS_TRACES = 2_000    # the layered card-vs-CPU check
 SERVE_PROMPT, SERVE_NEW_TOKENS = 2048, 32
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
-BF16_FLOP_PER_S = 989e12        # H100 SXM dense bf16 tensor cores, same
-FP32_FLOP_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 TIMED_REPS = 50
 
 
@@ -327,13 +345,14 @@ def _kernel_record(name, source, replaces, kernel, plain, library, *,
     library call's time where `library` is given, and the bound: the
     larger of the bytes that must move (each input read once, each output
     written once) over HBM bandwidth and the operations over the peak
-    rate for their type."""
+    rate for their type (`dryrun_lib.HW`: the H100 SXM data sheet)."""
+    from repro_torch.launch.dryrun_lib import HW
     ms = _median_ms(kernel, head_start_cycles=kernel_head_start)
     plain_ms = _median_ms(plain, reps=plain_reps,
                           head_start_cycles=plain_head_start)
     library_ms = (_median_ms(library, head_start_cycles=kernel_head_start)
                   if library is not None else None)
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    byte_ms = nbytes / HW["hbm_bw"] * 1e3
     op_ms = flops / peak_flops * 1e3 if flops else 0.0
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": None,
@@ -358,6 +377,7 @@ def admission_phase(dev):
                                                       admission_round_torch,
                                                       admission_rounds,
                                                       admission_rounds_torch)
+    from repro_torch.kernels import cost
     checked = []
     for N, R, seed in ADMISSION_CASES:
         args = _admission_inputs(N, R, seed, dev)
@@ -382,15 +402,13 @@ def admission_phase(dev):
     # R = 3 rounds in one call
     args = _admission_inputs(100_000, 3, 0, dev)
     N, R = args[0].shape
-    # each input read once, each output written once
-    # (dst' and struck'; want is (rounds, R) with rounds = R)
-    nbytes = (N * R * 8 + N * (4 + 1 + 4 + 4) + R * 4) + (N * 8 + R * R * 4)
+    flops, nbytes = cost.admission_rounds(N, R, R)
     record = _kernel_record(
         "admission_round", "src/repro_torch/csrc/admission_round.cu",
         "src/repro/cluster/placement_pallas.py:120",
         lambda: admission_rounds(*args, R),
         lambda: admission_rounds_torch(*args, R),
-        None, nbytes=nbytes, flops=0, peak_flops=None, checked=checked,
+        None, nbytes=nbytes, flops=flops, peak_flops=None, checked=checked,
         max_abs_err=0, tolerance="exact", kernel_head_start=2_000_000,
         plain_head_start=20_000_000)
     # the latency floor: one launch (a one-element fill) and each round's
@@ -455,9 +473,11 @@ def _qkv(case, dtype, dev, seed):
 def flash_phase(dev):
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_torch,
                                                      route)
+    from repro_torch.launch.dryrun_lib import HW
     checked = []
     main = [FLASH_MAIN, *FLASH_SHAPES.values()]
     runs = [(c, dt) for c in FLASH_CASES for dt in FLASH_TOL]
@@ -492,8 +512,8 @@ def flash_phase(dev):
         library_err = float((library().transpose(1, 2).float()
                              - flash_attention_torch(q, k, v, causal=causal)
                              .float()).abs().max())
-        # (q, kv) pairs: the causal triangle, else every pair
-        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Skv
+        flops, nbytes = cost.flash_attention(B, Sq, Skv, Hq, Hkv, Dh, 2,
+                                             causal, window)
         record = _kernel_record(
             "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
             "src/repro/kernels/flash_attention.py:78",
@@ -501,8 +521,7 @@ def flash_phase(dev):
             lambda: flash_attention_torch(q, k, v, causal=causal,
                                           window=window),
             library,
-            nbytes=2 * (2 * B * Sq * Hq * Dh + 2 * B * Skv * Hkv * Dh),
-            flops=4 * B * Hq * Dh * pairs, peak_flops=BF16_FLOP_PER_S,
+            nbytes=nbytes, flops=flops, peak_flops=HW["peak_flops_bf16"],
             checked=checked,
             max_abs_err=max(c["max_abs_err"] for c in checked),
             tolerance="2e-5 float32, 2e-2 bfloat16 (abs and rel)",
@@ -562,7 +581,9 @@ def _ssd_inputs(case, dtype, dev, seed, overflow=False, strided=False):
 
 
 def ssd_phase(dev):
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ssd_scan import ROUTES, ssd_scan, ssd_scan_torch
+    from repro_torch.launch.dryrun_lib import HW
     checked = []
     runs = [(c, dt, False, False) for c in SSD_CASES for dt in SSD_TOL]
     runs += [((2, 512, 4, 64, 128, 256), torch.float32, True, False),
@@ -595,21 +616,13 @@ def ssd_phase(dev):
                         "h_margin": _margin(h, h_want, 5e-3)})
     B, S, H, P, N, Q = SSD_MAIN
     args = _ssd_inputs(SSD_MAIN, torch.bfloat16, dev, seed=len(runs) - 1)
-    nc = S // Q
-    # each input read once, each output written once: x, b, c, y in bf16;
-    # dt, a_log, d, h_final in f32
-    nbytes = (2 * (2 * B * S * H * P + 2 * B * S * N)
-              + 4 * (B * S * H + 2 * H + B * H * P * N))
-    # the chunked form's products: C.B^T per chunk (shared by the heads),
-    # then per head the full Q x Q product with x, the chunk state and
-    # the entering state's contribution
-    flops = B * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * P * N))
+    flops, nbytes = cost.ssd_scan(B, S, H, P, N, Q, 2)
     record = _kernel_record(
         "ssd_scan", "src/repro_torch/csrc/ssd_scan.cu",
         "src/repro/kernels/ssd_scan.py:67",
         lambda: ssd_scan(*args, chunk=Q),
         lambda: ssd_scan_torch(*args, chunk=Q), None,
-        nbytes=nbytes, flops=flops, peak_flops=BF16_FLOP_PER_S,
+        nbytes=nbytes, flops=flops, peak_flops=HW["peak_flops_bf16"],
         checked=checked, max_abs_err=max(c["max_abs_err"] for c in checked),
         tolerance="y 5e-3 float32, 1e-1 bfloat16; h_final 5e-3 (abs and "
                   "rel)", kernel_head_start=4_000_000,
@@ -648,8 +661,10 @@ def _rglru_inputs(case, dtype, dev, seed):
 def rglru_phase(dev):
     """Each case against the plain version: bit-equal on the ring route,
     within RGLRU_TOL on the column route."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.rglru_scan import (rglru_scan, rglru_scan_torch,
                                                 route)
+    from repro_torch.launch.dryrun_lib import HW
     checked = []
     runs = [(c, dt) for c in RGLRU_CASES for dt in RGLRU_TOL]
     runs.append((RGLRU_MAIN, torch.bfloat16))
@@ -678,13 +693,12 @@ def rglru_phase(dev):
         raise AssertionError("the main path's shape is not on the ring route")
     B, S, W = RGLRU_MAIN
     args = _rglru_inputs(RGLRU_MAIN, torch.bfloat16, dev, seed=len(runs) - 1)
-    # a in bf16, gx and h_seq in f32, h0 and h_last in f32; 2 ops a step
-    nbytes = B * S * W * (2 + 4 + 4) + 2 * 4 * B * W
+    flops, nbytes = cost.rglru_scan(B, S, W, 2)
     record = _kernel_record(
         "rglru_scan", "src/repro_torch/csrc/rglru_scan.cu",
         "src/repro/kernels/rglru_scan.py:48",
         lambda: rglru_scan(*args), lambda: rglru_scan_torch(*args), None,
-        nbytes=nbytes, flops=2 * B * S * W, peak_flops=FP32_FLOP_PER_S,
+        nbytes=nbytes, flops=flops, peak_flops=HW["peak_flops_fp32"],
         checked=checked, max_abs_err=max(c["max_abs_err"] for c in checked),
         tolerance="ring: exact (bit-equal); column: y 1e-5 float32, 3e-2 "
                   "bfloat16; h 1e-4 float32, 1e-2 bfloat16 (abs and rel)",
@@ -1379,15 +1393,6 @@ def _train_qkvd(case, dtype, dev, seed):
                  for h in (Hq, Hkv, Hkv, Hq))
 
 
-def _attn_pairs(S, causal, window):
-    """(q, key) pairs a self-attention row set keeps."""
-    if not causal:
-        return S * S
-    if window and window > 0:
-        return sum(min(i + 1, window) for i in range(S))
-    return S * (S + 1) // 2
-
-
 def flash_train_phase(dev):
     """Flash attention under autograd (`FlashAttentionFn`): for
     tests/test_kernels.py's float32 cases and SmolLM-135M's training
@@ -1400,10 +1405,12 @@ def flash_train_phase(dev):
     `_flash_bwd_inner`), and of SDPA forward + backward."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import cost
     from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                      flash_attention, route)
     from repro_torch.kernels.ref import (attention_ref, flash_bwd_torch,
                                          flash_fwd_torch)
+    from repro_torch.launch.dryrun_lib import HW
     checked = []
     runs = [(c, torch.float32) for c in FLASH_TRAIN_F32]
     runs.append((FLASH_TRAIN_MAIN, torch.bfloat16))
@@ -1476,22 +1483,20 @@ def flash_train_phase(dev):
         sdpa_fwd_ms = _median_ms(lambda: F.scaled_dot_product_attention(
             *tl, is_causal=causal, enable_gqa=True),
             head_start_cycles=2_000_000)
-    pairs = _attn_pairs(S, causal, window)
-    io = 2 * (2 * B * S * Hq * Dh + 2 * B * S * Hkv * Dh)
-    fwd_flops = 4 * B * Hq * Dh * pairs
-    bwd_flops = 10 * B * Hq * Dh * pairs     # s, dv, dp, dq, dk products
-    lse_bytes = 4 * B * Hq * S
-    bwd_bytes = io + 2 * B * S * Hq * Dh + lse_bytes   # + dout, lse; dq dk dv
+    fwd_flops, fwd_bytes = cost.flash_attention(B, S, S, Hq, Hkv, Dh, 2,
+                                                causal, window, lse=True)
+    bwd_flops, bwd_bytes = cost.attention_backward(B, S, S, Hq, Hkv, Dh, 2,
+                                                   causal, window)
     return {"checked": checked, "shape": {
         "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "Dh": Dh, "dtype": "bfloat16",
         "causal": causal, "window": window},
         "kernel_route": route(torch.bfloat16, Dh) + "+lse",
         "fwd_lse_ms": fwd_lse_ms, "fwd_ms": fwd_ms,
-        "fwd_lse_bound_ms": max((io + lse_bytes) / HBM_BYTES_PER_S,
-                                fwd_flops / BF16_FLOP_PER_S) * 1e3,
+        "fwd_lse_bound_ms": max(fwd_bytes / HW["hbm_bw"],
+                                fwd_flops / HW["peak_flops_bf16"]) * 1e3,
         "bwd_ms": bwd_ms, "bwd_flops": bwd_flops,
-        "bwd_bound_ms": max(bwd_bytes / HBM_BYTES_PER_S,
-                            bwd_flops / FP32_FLOP_PER_S) * 1e3,
+        "bwd_bound_ms": max(bwd_bytes / HW["hbm_bw"],
+                            bwd_flops / HW["peak_flops_fp32"]) * 1e3,
         "bwd_bound_by": "float32 operations (67 TFLOP/s, no TF32)",
         "fwd_bwd_ms": fwd_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
         "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
@@ -1666,8 +1671,10 @@ def scan_backward_phase(dev):
     SSD's (plain torch, float32: the recompute and autodiff of
     `ssd_chunked`) and the RG-LRU's (the ring kernel on the reversed
     recurrence and the elementwise products)."""
+    from repro_torch.kernels import cost
     from repro_torch.kernels.ref import (rglru_ref, rglru_scan_bwd_torch,
                                          ssd_chunked, ssd_chunked_bwd_torch)
+    from repro_torch.launch.dryrun_lib import HW
     from repro_torch.kernels.rglru_scan import (RGLRUScanFn, rglru_gated,
                                                 rglru_scan, route)
     from repro_torch.kernels.ssd_scan import ROUTES, SSDScanFn, ssd_scan
@@ -1759,21 +1766,15 @@ def scan_backward_phase(dev):
     ssd_bwd_ms = _median_ms(lambda: ssd_chunked_bwd_torch(*args, dy,
                                                           chunk=Q),
                             reps=5, warmup=2, head_start_cycles=50_000_000)
-    nc = S // Q
-    fwd_flops = B * nc * (2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * P * N))
-    # inputs read (x, b, c, dy bf16; dt f32), gradients written in the
-    # inputs' dtypes; the recompute and the autodiff: 3 x the forward's
-    # products, in float32
-    ssd_bytes = (2 * (2 * B * S * H * P + 4 * B * S * N) + 2 * 4 * B * S * H)
-    ssd_flops = 3 * fwd_flops
+    ssd_flops, ssd_bytes = cost.ssd_backward(B, S, H, P, N, Q, 2)
     ssd_bwd = {"shape": {"B": B, "S": S, "H": H, "P": P, "N": N, "chunk": Q,
                          "dtype": "bfloat16"},
                "implementation": "plain torch, float32: kernels/ref.py "
                                  "ssd_chunked_bwd_torch (no kernel; the "
                                  "reference differentiates ssd_chunked)",
                "ms": ssd_bwd_ms, "bytes": ssd_bytes, "flops": ssd_flops,
-               "bound_ms": max(ssd_bytes / HBM_BYTES_PER_S,
-                               ssd_flops / FP32_FLOP_PER_S) * 1e3,
+               "bound_ms": max(ssd_bytes / HW["hbm_bw"],
+                               ssd_flops / HW["peak_flops_fp32"]) * 1e3,
                "bound_by": "float32 operations (67 TFLOP/s, no TF32)",
                "library_ms": None, "checked": ssd_checked}
     del args, dy
@@ -1799,17 +1800,15 @@ def scan_backward_phase(dev):
     rg_plain_ms = _median_ms(lambda: rglru_scan_bwd_torch(
         a, hs.detach(), h0, dy, dl), reps=3, warmup=1,
         head_start_cycles=400_000_000)
-    # read a (bf16), h_seq and dy (f32); write da (bf16) and dgx (f32);
-    # h0, dh_last, dh0 (B, W) f32; 3 operations an element
-    rg_bytes = B * S * W * (2 + 4 + 4 + 2 + 4) + 3 * 4 * B * W
+    rg_flops, rg_bytes = cost.rglru_scan_backward(B, S, W, 2)
     rglru_bwd = {"shape": {"B": B, "S": S, "W": W, "a_dtype": "bfloat16"},
                  "implementation": "the ring kernel on the reversed "
                                    "recurrence (RGLRUScanFn.backward)",
                  "kernel_route": "ring", "ms": rg_bwd_ms,
                  "plain_ms": rg_plain_ms, "bytes": rg_bytes,
-                 "flops": 3 * B * S * W,
-                 "bound_ms": max(rg_bytes / HBM_BYTES_PER_S,
-                                 3 * B * S * W / FP32_FLOP_PER_S) * 1e3,
+                 "flops": rg_flops,
+                 "bound_ms": max(rg_bytes / HW["hbm_bw"],
+                                 rg_flops / HW["peak_flops_fp32"]) * 1e3,
                  "bound_by": "bytes", "library_ms": None,
                  "checked": rg_checked}
     return {"ssd_backward": ssd_bwd, "rglru_backward": rglru_bwd}
@@ -1919,12 +1918,17 @@ def train_cross_check(dev, arch, n_layers, overrides, seq, batch, micro):
             for k in ("loss", "grad_norm")}
     w = dict(flatten(want))
     worst, flips, off, n = {"opt": 0.0, "params": 0.0}, 0, 0, 0
+    # the worst leaf of m and of v: (err / max, path); m = (1 - b1) x the
+    # clipped gradient on this first step, so m's leaf is the gradients'
+    leaf = {"m": (0.0, None), "v": (0.0, None)}
     lr = tcfg.optimizer.lr
     for path, t in flatten(got):
         a, b = t.cpu(), w[path]
         if path.startswith("opt/"):
-            worst["opt"] = max(worst["opt"], float(
-                (a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+            err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            worst["opt"] = max(worst["opt"], err)
+            kind = path.split("/")[1]
+            leaf[kind] = max(leaf[kind], (err, path[len("opt/m/"):]))
         elif path.startswith("params/"):
             worst["params"] = max(worst["params"], float(
                 ((a - b).abs() / (1e-3 + 1e-3 * b.abs())).max()))
@@ -1933,6 +1937,12 @@ def train_cross_check(dev, arch, n_layers, overrides, seq, batch, micro):
             flips += int((da.sign() != db.sign()).sum())
             off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * lr).sum())
             n += b.numel()
+    worst_leaf = {"grads": {"leaf": leaf["m"][1], "err_over_max": leaf["m"][0],
+                            "from": "m = (1 - b1) x clipped grads, step 1"},
+                  **{k: {"leaf": leaf[k][1], "err_over_max": leaf[k][0]}
+                     for k in ("m", "v")}}
+    print(f"[{arch} train card vs CPU] worst leaf: {json.dumps(worst_leaf)}",
+          flush=True)
     if max(errs.values()) > 1e-3 or worst["opt"] > 1e-3 or (
             worst["params"] > 1.0) or off > UPDATE_OFF_SHARE * n:
         raise AssertionError(f"{arch} train card vs CPU: {errs}, m/v err / "
@@ -1942,7 +1952,8 @@ def train_cross_check(dev, arch, n_layers, overrides, seq, batch, micro):
     return {"arch": arch, "n_layers": n_layers, **overrides,
             "dtype": "float32", "seq_len": seq, "global_batch": batch,
             "microbatch": micro, "loss": float(wm["loss"]), "rel_err": errs,
-            "mv_err_over_max": worst["opt"], "params_margin": worst["params"],
+            "mv_err_over_max": worst["opt"], "worst_leaf": worst_leaf,
+            "params_margin": worst["params"],
             "update_sign_flips": flips, "updates_off_bar": off,
             "params_total": n, "cpu_step_s": cpu_s, "launches": launches,
             "route_launches": routes}
@@ -1960,40 +1971,6 @@ FAMILY_FULL = [(TRAIN_ARCH, None, TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO,
                ("whisper-base", None, 448, 64, 16, "none", 2)]
 
 
-def _family_model_flops(model, batch, seq):
-    """Model FLOPs of one train step: 6 x parameters x the tokens each
-    parameter sees (the encoder's the frames, the rest the decoder
-    tokens), plus 3 x the forward's token-mixing products: the SSD's
-    chunked products, local and full attention's score and value
-    products over the (q, key) pairs each keeps."""
-    from repro_torch.models.params import flatten
-    cfg = model.cfg
-    n = {p: int(np.prod(s.shape)) for p, s in flatten(model.specs())}
-    total = sum(n.values())
-    if cfg.family == "encdec":
-        enc = sum(v for p, v in n.items() if p.startswith(("enc_layers",
-                                                           "enc_norm")))
-        frames = batch * cfg.enc_seq
-        flops = 6.0 * (enc * frames + (total - enc) * batch * seq)
-        dh = cfg.n_heads * cfg.head_dim
-        mix = 4 * batch * dh * (cfg.n_enc_layers * cfg.enc_seq ** 2
-                                + cfg.n_layers * (_attn_pairs(seq, True, 0)
-                                                  + seq * cfg.enc_seq))
-        return flops + 3 * mix
-    flops = 6.0 * total * batch * seq
-    if cfg.family == "ssm":
-        Q, H, P, N = (cfg.ssm_chunk, cfg.ssm_n_heads, cfg.ssm_head_dim,
-                      cfg.ssm_state)
-        mix = cfg.n_layers * batch * (seq // Q) * (
-            2 * Q * Q * N + H * (2 * Q * Q * P + 4 * Q * P * N))
-    else:
-        hybrid = cfg.family == "hybrid"
-        mix = (cfg.n_layers // 3 if hybrid else cfg.n_layers) * (
-            4 * batch * cfg.n_heads * cfg.head_dim
-            * _attn_pairs(seq, True, cfg.local_window if hybrid else 0))
-    return flops + 3 * mix
-
-
 def train_full_width(dev, arch, n_layers, seq, batch, micro, remat, steps):
     """Training at the published widths: seeded weights, `SyntheticLM`
     tokens (and seeded bf16 frames for Whisper), bf16 activations, f32
@@ -2006,6 +1983,7 @@ def train_full_width(dev, arch, n_layers, seq, batch, micro, remat, steps):
     losses (finite) and the cuts."""
     from repro_torch.config import OptimizerConfig, TrainConfig
     from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.dryrun_lib import HW, train_model_flops
     from repro_torch.train import loop as TL
     model = _family_model(arch, n_layers)
     cfg = model.cfg
@@ -2043,7 +2021,7 @@ def train_full_width(dev, arch, n_layers, seq, batch, micro, remat, steps):
         raise AssertionError(f"{arch} train: losses {losses}, peak {peak} B")
     step_s = float(np.median(times))
     tokens = batch * seq
-    flops = _family_model_flops(model, batch, seq)
+    flops = train_model_flops(model, batch, seq)
     published = _family_model(arch).cfg
     cuts = {}
     if cfg.n_layers != published.n_layers:
@@ -2061,12 +2039,183 @@ def train_full_width(dev, arch, n_layers, seq, batch, micro, remat, steps):
             "step_times_s": times, "step_time_s": step_s,
             "tokens_per_step": tokens, "train_tok_s": tokens / step_s,
             "model_flops_per_step": flops,
-            "mfu": flops / (step_s * BF16_FLOP_PER_S),
+            "mfu": flops / (step_s * HW["peak_flops_bf16"]),
             "mfu_peak": "989e12 (H100 SXM dense bf16)", "losses": losses,
             "max_memory_allocated": peak, "launches": launches,
             "route_launches": routes, "profile_microbatch": {
                 "tokens": micro * seq, "wall_s": wall, "device_s": dev_s,
                 "top": top}}
+
+
+# ---------------------------------------------------------------------------
+# The dry run and roofline; the reference's user entry points
+# ---------------------------------------------------------------------------
+
+# cells of configs.registry.all_cells(): 32 run, the 8 full-attention
+# long_500k cells are skipped with the reference's reasons
+DRYRUN_RUN, DRYRUN_SKIPPED = 32, 8
+# the one runnable cell whose probe depth does not fit one card: DBRX's
+# two-layer train probe, ~6.6 B parameters with f32 masters and AdamW
+DRYRUN_UNPROBED = {"dbrx-132b__train_4k"}
+
+
+def dryrun_phase(dev, measured):
+    """`python -m repro_torch.launch.dryrun --all` on the card (every
+    cell's memory, model FLOPs and marginal-layer probes at the published
+    widths), then the roofline of the runnable cells; `measured` maps
+    "<arch>__<shape>" to a step time this run measured (SmolLM-135M at
+    train_4k, phase 9). Every cell's model FLOPs equal the host
+    formula's, every probed FLOP count is positive, the cells left
+    unprobed (they do not fit one card) are exactly `DRYRUN_UNPROBED`
+    (any error, out of memory included, fails the cell and the phase),
+    and the cost counter's calls equal the kernels' launch counters over
+    the phase."""
+    from repro_torch.kernels.cost import COUNTER
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch import dryrun_lib as DL
+    save = OUT / "dryrun"
+    COUNTER.reset()
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--all", "--device", "cuda", "--save-dir", str(save)])
+    run_s = time.perf_counter() - t0
+    launches, calls = _read_counts(), dict(COUNTER.calls)
+    cells = roofline.load_cells(str(save))
+    ok = [r for r in cells if r["status"] == "ok"]
+    problems = []
+    if rc or len(ok) != DRYRUN_RUN or len(cells) - len(ok) != DRYRUN_SKIPPED:
+        problems.append(f"dryrun rc {rc}, {len(ok)} cells ok of {len(cells)}")
+    if calls != launches:
+        problems.append(f"cost counter calls {calls} != launches {launches}")
+    for r in ok:
+        where = f"{r['arch']} x {r['shape']}"
+        if r["model_flops_global"] != DL.model_flops(r["arch"], r["shape"]):
+            problems.append(f"{where}: model FLOPs {r['model_flops_global']}")
+        probed = r.get("cost_probed")
+        if probed is not None and not probed["flops"] > 0:
+            problems.append(f"{where}: probed FLOPs {probed['flops']}")
+    not_probed = {f"{r['arch']}__{r['shape']}": r.get("probe")
+                  for r in ok if "cost_probed" not in r}
+    if set(not_probed) != DRYRUN_UNPROBED:
+        problems.append(f"not probed: {not_probed}, expected only "
+                        f"{sorted(DRYRUN_UNPROBED)}")
+    if problems:
+        raise AssertionError(f"dry run: {problems}")
+    rows = [roofline.roofline_row(r, measured.get(f"{r['arch']}__{r['shape']}"))
+            for r in cells]
+    (save / "roofline.json").write_text(json.dumps(rows, indent=1))
+    return {"run_s": run_s, "launches": launches, "cost_calls": calls,
+            "cost_flops": dict(COUNTER.flops), "cost_bytes": dict(COUNTER.bytes),
+            "not_probed": not_probed,
+            "rows": rows, "table": roofline.markdown_table(rows)}
+
+
+# the sweep examples at a reduced size, card against CPU (bit-equal rows:
+# the sweep path's card arithmetic is the CPU's through devmath)
+EXAMPLES_SMALL = {
+    "elasticity_demo": ["--containers", "200", "--days", "2",
+                        "--sweep-traces", "16"],
+    "traffic_demo": ["--users", "20000", "--sweep-traces", "8"],
+    "simulate_regions": ["--torch-sweep", "--containers", "480"],
+}
+
+
+def _same(a, b, where):
+    """Exact equality of two nested summaries (dicts, lists, numbers)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"{where}: keys {sorted(a)} != {sorted(b)}")
+        for k in a:
+            _same(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: {len(a)} != {len(b)} entries")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{where}: arrays differ")
+    elif a != b and not (isinstance(a, float) and np.isnan(a)
+                         and np.isnan(b)):
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def examples_phase(dev):
+    """The five examples (`repro_torch.examples`) on the card at the
+    reference's defaults, each held to its own verdict: quickstart's
+    loss falls and it generates (4, 12) tokens; carbon_train's average
+    C(t) <= its target; elasticity_demo's forecast saves carbon per unit
+    of work, within the oracle's bound, with no budget violation;
+    traffic_demo's carbon routing emits less per request, violating the
+    SLO no more than latency routing; simulate_regions' 10,080-container
+    placed sweep gives the CPU's rows exactly (every key of every row).
+    Then the sweep examples at a reduced size on the card and on the
+    CPU: summaries equal."""
+    import contextlib
+    import io
+    from importlib import import_module
+    out, problems = {}, []
+    _zero_counts()
+    for name, argv in (("quickstart", []), ("carbon_train", []),
+                       ("elasticity_demo", []), ("traffic_demo", []),
+                       ("simulate_regions", ["--torch-sweep"])):
+        mod = import_module(f"repro_torch.examples.{name}")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as text:
+            res = mod.main(argv + ["--device", "cuda"])
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "last_lines": text.getvalue().strip().splitlines()[-3:]}
+        if name == "quickstart":
+            ok = (res["loss_last"] < res["loss_first"]
+                  and res["tokens"].shape == (4, 12))
+            out[name].update(loss=[res["loss_first"], res["loss_last"]])
+        elif name == "carbon_train":
+            ok = res["enforced"] and res["steps"] == 200
+            out[name].update({k: res[k] for k in (
+                "avg_rate_g_per_h", "target_g_per_h", "migrations")})
+        elif name == "elasticity_demo":
+            ok = (0 < res["forecast_saving"] <= res["oracle_bound"]
+                  and all(s["elastic_cap_violations"] == 0
+                          for s in res["ablation"].values())
+                  and res["sweep_rows"][0]["elastic_cap_violations"] == 0)
+            out[name].update(forecast_saving=res["forecast_saving"],
+                             oracle_bound=res["oracle_bound"])
+        elif name == "traffic_demo":
+            rt = res["routing"]
+            ok = (res["carbon_saving"] > 0 and rt["carbon"]["violations"]
+                  <= rt["latency"]["violations"])
+            out[name].update(carbon_saving=res["carbon_saving"])
+        else:
+            sw = res["torch_sweep"]
+            ok = sw["drift"] == 0.0 and sw["containers"] == 10080
+            try:
+                _same(sw["rows"], sw["cpu_rows"], f"{name} card vs CPU")
+            except AssertionError as e:
+                ok = False
+                problems.append(str(e))
+            out[name].update({k: sw[k] for k in (
+                "containers", "epochs", "first_s", "steady_s", "cpu_s",
+                "container_epochs_per_s", "drift")})
+        if not ok:
+            problems.append(f"{name}: {out[name]}")
+    out["launches"] = _read_counts()
+    for name, argv in EXAMPLES_SMALL.items():
+        mod = import_module(f"repro_torch.examples.{name}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            card = mod.main(argv + ["--device", "cuda"])
+            cpu = mod.main(argv + ["--device", "cpu"])
+        for res in (card, cpu):   # wall times and the card's CPU rerun
+            for k in ("first_s", "steady_s", "container_epochs_per_s",
+                      "cpu_s", "drift", "cpu_rows"):
+                res.get("torch_sweep", {}).pop(k, None)
+        try:
+            _same(card, cpu, f"{name} card vs CPU")
+        except AssertionError as e:
+            problems.append(str(e))
+        out[f"{name}_card_vs_cpu"] = {"argv": argv, "equal": True}
+    if problems:
+        raise AssertionError(f"examples: {problems}")
+    return out
 
 
 def _kernel_counters():
@@ -2502,6 +2651,16 @@ def main():
         _free_device_memory()
     trainer = timed("carbon_trainer", carbon_trainer, dev)
     _free_device_memory()
+    smollm = f"{TRAIN_ARCH}__train_4k"
+    dry = timed("dryrun", dryrun_phase, dev,
+                {smollm: train[0]["step_time_s"]})
+    _free_device_memory()
+    roof = {f"{r['arch']}__{r['shape']}": r for r in dry["rows"]}
+    if roof[smollm]["mfu"] != train[0]["mfu"]:
+        raise AssertionError(f"roofline mfu {roof[smollm]['mfu']} != phase "
+                             f"9's {train[0]['mfu']}")
+    examples = timed("examples", examples_phase, dev)
+    _free_device_memory()
 
     # launches: the count of each kernel over the main paths that run it
     by_path = {"placed_sweep": full["launches"],
@@ -2511,7 +2670,8 @@ def main():
                **{r["arch"]: r["launches"] for r in serve},
                f"carbon_serve_{CARBON_SERVE_ARCH}": cserve["launches"],
                **{f"train_{r['arch']}": r["launches"] for r in train},
-               "carbon_trainer": trainer["launches"]}
+               "carbon_trainer": trainer["launches"],
+               "dryrun": dry["launches"], "examples": examples["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
                                       by_path.items() if counts[name]}
@@ -2546,7 +2706,9 @@ def main():
               "bf16_kernels_vs_plain": bf16_check, "serving": serve,
               "carbon_serve": cserve, "flash_train": flash_train,
               "train_cross_check": train_cross, "train_full_width": train,
-              "carbon_trainer": trainer, "scan_backward": scan_bwd}
+              "carbon_trainer": trainer, "scan_backward": scan_bwd,
+              "dryrun": {k: v for k, v in dry.items() if k != "table"},
+              "examples": examples}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     summary = {k: v for k, v in full.items() if k not in ("rows", "profile")}
@@ -2603,6 +2765,11 @@ def main():
         "scan_backward": {k: {kk: vv for kk, vv in v.items()
                               if kk != "checked"}
                           for k, v in scan_bwd.items()}}}), flush=True)
+    print(f"roofline of the single-card dry run ({card}):", flush=True)
+    print(dry["table"], flush=True)
+    print(json.dumps({"dryrun": {k: v for k, v in dry.items()
+                                 if k not in ("rows", "table")},
+                      "examples": examples}), flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in ("checked", "sass",
                                                 "train_checked")}

@@ -24,7 +24,8 @@ the card. `admission_round` is the Pallas kernel's one-round contract,
 through the same kernel.
 
 `admission_rounds.launches` counts kernel launches (one per CUDA call);
-CPU calls do not count.
+CPU calls do not count. Inside ``repro_torch.kernels.cost.COUNTER.on()``
+every call with N > 0 adds its work to that counter, on both routes.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import functools
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import cost
 
 MAX_REGIONS = 31        # the strike bitmask is an int32
 
@@ -135,40 +137,42 @@ def admission_rounds(net, assign, eligible, dst, struck, remaining, rounds):
     _check(net, assign, eligible, dst, struck, remaining)
     if rounds < 1:
         raise ValueError(f"admission_rounds needs rounds >= 1, got {rounds}")
-    if net.device.type == "cpu":
-        return admission_rounds_torch(net, assign, eligible, dst, struck,
-                                      remaining, rounds)
-    if net.device.type != "cuda":
+    if net.device.type not in ("cpu", "cuda"):
         raise ValueError(f"admission_rounds runs on cuda or cpu tensors, "
                          f"got {net.device}")
     N, R = net.shape
-    if N == 0:
+    if N == 0:                          # nothing to admit: no launch, no count
         return (dst.clone(), struck.clone(),
                 torch.zeros((rounds, R), dtype=torch.int32, device=net.device))
-    lib = _library()
-    dev = net.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        blocks = ctypes.c_int(0)
-        variant = lib.admission_rounds_plan(N, ctypes.byref(blocks))
-        if variant < 0:
-            raise RuntimeError(f"admission_rounds_plan failed: CUDA error "
-                               f"{-variant}")
-        dst_out = torch.empty_like(dst)
-        struck_out = torch.empty_like(struck)
-        want = torch.empty((rounds, R), **i32)
-        counts = torch.empty((rounds, blocks.value, R), **i32)
-        pref = torch.empty(N, **i32)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.admission_rounds(
-            net.data_ptr(), assign.data_ptr(), eligible.data_ptr(),
-            dst.data_ptr(), struck.data_ptr(), remaining.data_ptr(), N, R,
-            rounds, variant, blocks.value, counts.data_ptr(),
-            dst_out.data_ptr(), struck_out.data_ptr(), pref.data_ptr(),
-            want.data_ptr(), stream)
-    if err:
-        raise RuntimeError(f"admission_rounds cooperative launch failed: "
-                           f"CUDA error {err}")
+    with cost.COUNTER.count("admission_round",
+                            lambda: cost.admission_rounds(N, R, rounds)):
+        if net.device.type == "cpu":
+            return admission_rounds_torch(net, assign, eligible, dst, struck,
+                                          remaining, rounds)
+        lib = _library()
+        dev = net.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            blocks = ctypes.c_int(0)
+            variant = lib.admission_rounds_plan(N, ctypes.byref(blocks))
+            if variant < 0:
+                raise RuntimeError(f"admission_rounds_plan failed: CUDA "
+                                   f"error {-variant}")
+            dst_out = torch.empty_like(dst)
+            struck_out = torch.empty_like(struck)
+            want = torch.empty((rounds, R), **i32)
+            counts = torch.empty((rounds, blocks.value, R), **i32)
+            pref = torch.empty(N, **i32)
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.admission_rounds(
+                net.data_ptr(), assign.data_ptr(), eligible.data_ptr(),
+                dst.data_ptr(), struck.data_ptr(), remaining.data_ptr(), N,
+                R, rounds, variant, blocks.value, counts.data_ptr(),
+                dst_out.data_ptr(), struck_out.data_ptr(), pref.data_ptr(),
+                want.data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"admission_rounds cooperative launch failed: "
+                               f"CUDA error {err}")
     admission_rounds.launches += 1
     return dst_out, struck_out, want
 

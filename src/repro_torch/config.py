@@ -1,8 +1,9 @@
 """Model configuration of the port: its own copy of the reference's
 `ModelConfig`, `ShapeConfig`, `ArchSpec`, the family and MLP constants,
 `SHAPES`, the training and carbon knobs (`OptimizerConfig`,
-`TrainConfig`, `CarbonConfig`) and the launchers' ``--key value``
-parser (`parse_cli`).
+`TrainConfig`, `CarbonConfig`), `MeshConfig`, and the launchers'
+``--key value`` parser (`parse_cli`) with its dotted-key overrides
+(`apply_overrides`).
 
 Plain frozen dataclasses, field for field as in the JAX package, so a
 configuration reads the same on both sides, with one exception: the
@@ -15,8 +16,9 @@ and a reduced smoke one in ``repro_torch.configs``.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 # ---------------------------------------------------------------------------
 # Model families
@@ -145,6 +147,15 @@ class ModelConfig:
             total += self.n_layers * (2 * d * kvd + d * qd + qd * d + d)
         return total
 
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k of n_experts)."""
+        if self.family != MOE:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        dense_mlp = 3 * d * f if self.mlp_variant in (SWIGLU, GEGLU) else 2 * d * f
+        unused = (self.n_experts - self.top_k) * dense_mlp * self.n_layers
+        return self.param_count() - unused
+
 
 # ---------------------------------------------------------------------------
 # Input shapes
@@ -192,7 +203,7 @@ class ArchSpec:
 
 
 # ---------------------------------------------------------------------------
-# Training / carbon configs
+# Training / mesh / carbon configs
 # ---------------------------------------------------------------------------
 
 @dataclass(frozen=True)
@@ -225,6 +236,25 @@ class TrainConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's axis sizes, as in the reference. The port runs on
+    one card (``n_devices`` 1); the multi-card layout is its own item."""
+    data: int = 1
+    model: int = 1
+    pod: int = 1
+
+    @property
+    def n_devices(self) -> int:
+        return self.data * self.model * self.pod
+
+    def axis_names(self) -> tuple:
+        return ("pod", "data", "model") if self.pod > 1 else ("data", "model")
+
+    def shape(self) -> tuple:
+        return (self.pod, self.data, self.model) if self.pod > 1 else (self.data, self.model)
+
+
+@dataclass(frozen=True)
 class CarbonConfig:
     """Carbon Containers knobs (paper §3.1.1)."""
 
@@ -236,8 +266,38 @@ class CarbonConfig:
 
 
 # ---------------------------------------------------------------------------
-# CLI
+# CLI override helpers
 # ---------------------------------------------------------------------------
+
+def _coerce(val: str, like: Any) -> Any:
+    if isinstance(like, bool):
+        return val.lower() in ("1", "true", "yes", "on")
+    if isinstance(like, int):
+        return int(val)
+    if isinstance(like, float):
+        return float(val)
+    if isinstance(like, tuple):
+        return tuple(val.split(","))
+    return val
+
+
+def apply_overrides(cfg: Any, overrides: Mapping[str, str]) -> Any:
+    """Return a copy of dataclass ``cfg`` with dotted-key overrides applied."""
+    for key, val in overrides.items():
+        parts = key.split(".")
+        cfg = _apply_one(cfg, parts, val)
+    return cfg
+
+
+def _apply_one(cfg: Any, parts: Sequence[str], val: str) -> Any:
+    name = parts[0]
+    if not dataclasses.is_dataclass(cfg) or name not in {f.name for f in dataclasses.fields(cfg)}:
+        raise KeyError(f"no config field {'.'.join(parts)!r} on {type(cfg).__name__}")
+    cur = getattr(cfg, name)
+    if len(parts) == 1:
+        return dataclasses.replace(cfg, **{name: _coerce(val, cur)})
+    return dataclasses.replace(cfg, **{name: _apply_one(cur, parts[1:], val)})
+
 
 def parse_cli(argv: Sequence[str]) -> dict:
     """``--a.b v --flag true`` -> {'a.b': 'v', 'flag': 'true'}"""

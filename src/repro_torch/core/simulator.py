@@ -8,11 +8,15 @@ trace) pair on a slice family, one decision per monitoring interval,
 including migration downtime from the Fig.-7 cost model (both slices
 powered during a stop-and-copy, no work served). `SimConfig` also holds
 the settings of the device sweep (`repro_torch.core.fleet`).
+`sweep_population` is the reference's keyword front door to a
+population sweep.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional, Sequence
+
+import numpy as np
 
 from repro_torch.carbon.intensity import CarbonIntensityProvider
 from repro_torch.cluster.migration import MigrationCostModel
@@ -195,3 +199,78 @@ def _record(series, cfg, t, rate, st, util, demand, served):
     series["util"].append(util)
     series["demand"].append(demand)
     series["served"].append(served)
+
+
+# ---------------------------------------------------------------------------
+# Population sweep (Figs 11-16): many jobs x many targets x policies
+# ---------------------------------------------------------------------------
+
+def sweep_population(policies, family: SliceFamily = None, traces=None,
+                     carbon=None, targets: Sequence[float] = None,
+                     cfg_base: SimConfig = None, demand_scale: float = 1.0,
+                     backend: str = "torch", placement=None, traffic=None,
+                     elasticity=None, energy=None, faults=None,
+                     device="cuda"):
+    """Run a population sweep: every (policy x target x trace) combination.
+
+    Pass a `repro_torch.core.spec.SweepSpec` as the first argument and get
+    its `SweepResult` back (`SweepSpec.run()`). The keyword surface below
+    is the reference's shim: it builds the spec and returns the bare row
+    list ({policy, target, mean/std of carbon rate and throttle, ...}).
+
+    `backend="torch"` runs `sweep_population_torch` on `device`, with the
+    placement, traffic, elasticity, energy and fault layers (see
+    `SweepSpec`). `backend="scalar"` runs the host `simulate` once per
+    (policy x target x trace), in the reference's row order, on no layer.
+    """
+    from repro_torch.core.spec import SweepSpec
+    if isinstance(policies, SweepSpec):
+        if family is not None or traces is not None:
+            raise TypeError("pass either a SweepSpec or the kwargs "
+                            "surface, not both")
+        return policies.run()
+    cfg_base = cfg_base if cfg_base is not None else SimConfig(target_rate=0.0)
+    if backend == "torch":
+        return SweepSpec(policies=policies, family=family, traces=traces,
+                         targets=targets, carbon=carbon, sim=cfg_base,
+                         demand_scale=demand_scale, backend=backend,
+                         placement=placement, traffic=traffic,
+                         elasticity=elasticity, energy=energy, faults=faults,
+                         device=device).run().rows
+    if backend != "scalar":
+        raise ValueError(f"unknown sweep backend {backend!r}; the port takes "
+                         f"'torch' or 'scalar'")
+    for name, layer in (("placement", placement), ("traffic", traffic),
+                        ("elasticity", elasticity), ("energy", energy),
+                        ("faults", faults)):
+        if layer is not None:
+            raise ValueError(f"{name} requires backend='torch'")
+    rows = []
+    for target in targets:
+        for name, mk_policy in policies.items():
+            rates, thr, migs, susp = [], [], [], []
+            slice_time: dict = {}
+            for tr in traces:
+                cfg = SimConfig(target_rate=target, epsilon=cfg_base.epsilon,
+                                interval_s=cfg_base.interval_s,
+                                state_gb=cfg_base.state_gb,
+                                suspend_releases_slice=cfg_base.suspend_releases_slice)
+                res = simulate(mk_policy(), family, tr, carbon, cfg,
+                               demand_scale=demand_scale)
+                rates.append(res.avg_carbon_rate)
+                thr.append(res.avg_throttle_pct)
+                migs.append(res.migrations)
+                susp.append(res.suspended_frac)
+                for k, v in res.time_on_slice.items():
+                    slice_time[k] = slice_time.get(k, 0.0) + v / len(traces)
+            rows.append({
+                "policy": name, "target": target,
+                "carbon_rate_mean": float(np.mean(rates)),
+                "carbon_rate_std": float(np.std(rates)),
+                "throttle_mean": float(np.mean(thr)),
+                "throttle_std": float(np.std(thr)),
+                "migrations_mean": float(np.mean(migs)),
+                "suspended_frac_mean": float(np.mean(susp)),
+                "time_on_slice": slice_time,
+            })
+    return rows

@@ -24,11 +24,18 @@ the TPU's place. ``impl``:
     on the reversed recurrence); `rglru_assoc` on the CPU.
   - The decode steps and the causal conv are plain torch, as they are
     plain jnp in the reference.
+
+Every "auto" call that the card serves with a kernel adds its work to
+`cost.COUNTER` on both routes while the counter is on: the flash
+attention of `mha` (with the log-sum-exp under grad), the SSD scan of
+`ssd`, and the RG-LRU scan of `rglru` (its gates are plain torch on both
+routes and stay outside the count; `RGLRUScanFn` counts its backward).
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import cost
 from repro_torch.kernels import ref as R
 from repro_torch.kernels.flash_attention import (FlashAttentionFn,
                                                  flash_attention)
@@ -38,10 +45,14 @@ from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan
 IMPLS = ("auto", "ref")
 
 
-def _on_card(impl: str, x: torch.Tensor, op: str) -> bool:
-    """Whether "auto" sends a tensor on the card to the kernel."""
+def _check_impl(impl: str, op: str):
     if impl not in IMPLS:
         raise ValueError(f"unknown {op} impl {impl!r}; expected auto or ref")
+
+
+def _on_card(impl: str, x: torch.Tensor, op: str) -> bool:
+    """Whether "auto" sends a tensor on the card to the kernel."""
+    _check_impl(impl, op)
     return impl == "auto" and x.device.type == "cuda"
 
 
@@ -53,16 +64,25 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: int = 0, q_offset=0, kv_len=None,
         kv_positions=None, impl: str = "auto") -> torch.Tensor:
     """GQA attention. q (B,Sq,Hq,Dh); k,v (B,Skv,Hkv,Dh)."""
-    Sq, Skv = q.shape[1], k.shape[1]
+    _check_impl(impl, "attention")
+    (B, Sq, Hq, Dh), (Skv, Hkv) = q.shape, k.shape[1:3]
     self_attn = q_offset == 0 and kv_len is None and kv_positions is None
-    if _on_card(impl, q, "attention") and Sq > 1 and self_attn:
-        if R.needs_grad(q, k, v):
-            return FlashAttentionFn.apply(q, k, v, causal, window or 0, None)
-        return flash_attention(q, k, v, causal=causal, window=window or 0)
+    if impl == "auto" and Sq > 1 and self_attn:     # the flash kernel's call
+        with cost.COUNTER.count("flash_attention", lambda: cost.flash_attention(
+                B, Sq, Skv, Hq, Hkv, Dh, q.element_size(), causal,
+                window or 0, lse=R.needs_grad(q, k, v))):
+            if _on_card(impl, q, "attention"):
+                if R.needs_grad(q, k, v):
+                    return FlashAttentionFn.apply(q, k, v, causal,
+                                                  window or 0, None)
+                return flash_attention(q, k, v, causal=causal,
+                                       window=window or 0)
+            if Sq * Skv > 1024 * 1024:
+                return R.attention_flash(q, k, v, causal=causal,
+                                         window=window)
+            return R.attention_ref(q, k, v, causal=causal, window=window)
     if (impl == "auto" and Sq > 1 and kv_positions is None
             and Sq * Skv > 1024 * 1024):
-        if self_attn:
-            return R.attention_flash(q, k, v, causal=causal, window=window)
         return R.attention_chunked(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset, kv_len=kv_len)
     return R.attention_ref(q, k, v, causal=causal, window=window,
@@ -77,10 +97,15 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def ssd(x, dt, a_log, b, c, d, *, h0=None, chunk: int = 256,
         impl: str = "auto"):
     """SSD scan. Returns (y, h_final); see `ref.ssd_ref` for semantics."""
-    if _on_card(impl, x, "ssd") and b.shape[2] == 1 and h0 is None:
-        if R.needs_grad(x, dt, a_log, b, c, d):
-            return SSDScanFn.apply(x, dt, a_log, b, c, d, chunk)
-        return ssd_scan(x, dt, a_log, b, c, d, chunk=chunk)
+    _check_impl(impl, "ssd")
+    if impl == "auto" and b.shape[2] == 1 and h0 is None:   # the kernel's call
+        with cost.COUNTER.count("ssd_scan", lambda: cost.ssd_scan(
+                *x.shape, b.shape[3], chunk, x.element_size())):
+            if _on_card(impl, x, "ssd"):
+                if R.needs_grad(x, dt, a_log, b, c, d):
+                    return SSDScanFn.apply(x, dt, a_log, b, c, d, chunk)
+                return ssd_scan(x, dt, a_log, b, c, d, chunk=chunk)
+            return R.ssd_chunked(x, dt, a_log, b, c, d, chunk=chunk)
     return R.ssd_chunked(x, dt, a_log, b, c, d, h0=h0, chunk=chunk)
 
 
@@ -108,7 +133,9 @@ def rglru(x, r, i, lam, *, h0=None, impl: str = "auto"):
     """Gated linear recurrence. Returns (h_seq, h_final)."""
     if _on_card(impl, x, "rglru"):
         return rglru_gated(x, r, i, lam, h0=h0)
-    return R.rglru_assoc(x, r, i, lam, h0=h0)
+    scan_scope = (cost.COUNTER.count("rglru_scan", lambda: cost.rglru_scan(
+        *x.shape, x.element_size())) if impl == "auto" else None)
+    return R.rglru_assoc(x, r, i, lam, h0=h0, scan_scope=scan_scope)
 
 
 def rglru_decode_step(x, r, i, lam, h):

@@ -14,6 +14,7 @@ lse) and whose backward recomputes each block's probabilities
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -477,25 +478,28 @@ def rglru_grads_from_g(a, h_seq, h0, g) -> tuple:
     return (g * h_prev).to(a.dtype), g, a[:, 0].float() * g[:, 0]
 
 
-def rglru_assoc(x, r, i, lam, h0=None):
+def rglru_assoc(x, r, i, lam, h0=None, scan_scope=None):
     """RG-LRU by a log-depth scan over time (Hillis-Steele doubling with
     the combine (a1, b1), (a2, b2) -> (a1·a2, a2·b1 + b2)): the
     counterpart of the reference's ``associative_scan`` path, its CPU
-    path. Same contract as `rglru_ref`."""
+    path. Same contract as `rglru_ref`. The scan (not the gates or the
+    cast) runs inside ``scan_scope``, a context manager, where given."""
     a, gx = rglru_gates(x, r, i, lam)
-    if h0 is not None:
-        gx = gx.clone()
-        gx[:, 0] += a[:, 0] * h0.float()        # h_1 = a_1·h0 + gx_1
-    S = x.shape[1]
-    step = 1
-    while step < S:
-        b_new = gx.clone()
-        b_new[:, step:] = a[:, step:] * gx[:, :-step] + gx[:, step:]
-        a_new = a.clone()
-        a_new[:, step:] = a[:, :-step] * a[:, step:]
-        a, gx = a_new, b_new
-        step *= 2
-    return gx.to(x.dtype), gx[:, -1].clone()
+    with scan_scope or contextlib.nullcontext():
+        if h0 is not None:
+            gx = gx.clone()
+            gx[:, 0] += a[:, 0] * h0.float()    # h_1 = a_1·h0 + gx_1
+        S = x.shape[1]
+        step = 1
+        while step < S:
+            b_new = gx.clone()
+            b_new[:, step:] = a[:, step:] * gx[:, :-step] + gx[:, step:]
+            a_new = a.clone()
+            a_new[:, step:] = a[:, :-step] * a[:, step:]
+            a, gx = a_new, b_new
+            step *= 2
+        h_last = gx[:, -1].clone()
+    return gx.to(x.dtype), h_last
 
 
 # ---------------------------------------------------------------------------

@@ -27,6 +27,10 @@ the Function. The raw `rglru_scan` raises on the card when autograd
 would need a backward (grad enabled and an input requiring grad) rather
 than return outputs cut from the graph.
 
+While `cost.COUNTER` is on, `rglru_gated` adds the scan's work to it
+(its gates stay outside the count), and `RGLRUScanFn.backward` the
+backward's, on both routes.
+
 `rglru_scan.launches` counts kernel launches and
 `rglru_scan.route_launches` those launches per route; CPU calls do not
 count.
@@ -39,6 +43,7 @@ import functools
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import cost
 from repro_torch.kernels.ref import (needs_grad, rglru_gates,
                                     rglru_grads_from_g, rglru_scan_bwd_torch)
 
@@ -151,14 +156,16 @@ class RGLRUScanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy, dh_last):
         a, h_seq, h0 = ctx.saved_tensors
-        if a.device.type == "cpu":
-            return rglru_scan_bwd_torch(a, h_seq, h0, dy, dh_last)
-        B, W = h0.shape
-        a_rev = torch.cat([a[:, 1:], a.new_ones(B, 1, W)], 1).flip(1)
-        g_rev, _ = rglru_scan(a_rev.contiguous(),
-                              dy.float().flip(1).contiguous(),
-                              dh_last.float().contiguous())
-        return rglru_grads_from_g(a, h_seq, h0, g_rev.flip(1))
+        with cost.COUNTER.count("rglru_scan", lambda: cost.rglru_scan_backward(
+                *a.shape, a.element_size())):
+            if a.device.type == "cpu":
+                return rglru_scan_bwd_torch(a, h_seq, h0, dy, dh_last)
+            B, W = h0.shape
+            a_rev = torch.cat([a[:, 1:], a.new_ones(B, 1, W)], 1).flip(1)
+            g_rev, _ = rglru_scan(a_rev.contiguous(),
+                                  dy.float().flip(1).contiguous(),
+                                  dh_last.float().contiguous())
+            return rglru_grads_from_g(a, h_seq, h0, g_rev.flip(1))
 
 
 def rglru_gated(x, r, i, lam, *, h0=None) -> tuple:
@@ -172,5 +179,7 @@ def rglru_gated(x, r, i, lam, *, h0=None) -> tuple:
            else h0.float())
     a = a.to(x.dtype)
     scan = RGLRUScanFn.apply if needs_grad(a, gx, h0f) else rglru_scan
-    y, h_last = scan(a, gx, h0f)
+    with cost.COUNTER.count("rglru_scan", lambda: cost.rglru_scan(
+            B, S, W, a.element_size())):
+        y, h_last = scan(a, gx, h0f)
     return y.to(x.dtype), h_last

@@ -1,0 +1,144 @@
+"""Roofline of the single-card dry run (`repro_torch.launch.dryrun`'s
+JSONs), the reference's `src/repro/launch/roofline.py` on one H100.
+
+Terms per (arch × shape) cell, in seconds a step on one card:
+
+  compute_s    = probed FLOPs ÷ 989 TFLOP/s (dense bf16; the marginal-
+                 layer probes count every layer, and the hand kernels'
+                 work through `kernels.cost`)
+  memory_s     = probed bytes ÷ 3.35 TB/s (HBM)
+  collective_s = 0.0: one card (``devices`` = 1) exchanges nothing
+
+with MODEL_FLOPS = 6·N·D (train) / 2·N·D (serve), N the active
+parameters; the useful ratio MODEL_FLOPS / probed FLOPs; the dominant
+term; the roofline fraction (MODEL_FLOPS at peak over the larger term);
+the peak bytes of the cell's arguments against the card's memory, and
+``cards_needed``. Given a step time measured on the card
+(`chip_smoke.py` passes SmolLM-135M's at ``train_4k``), `roofline_row`
+also carries ``step_time_s`` and ``mfu`` = the train model FLOPs
+(`dryrun_lib.train_model_flops`) / (``step_time_s`` × peak).
+
+The reference re-probes bytes without the (Sq, Skv) logits of XLA's
+plain attention (`probe_bytes.py`); here the probe already runs the
+flash kernel and counts its q + k + v + o (+ lse) bytes, so there is no
+second pass.
+
+Usage:
+  PYTHONPATH=src python -m repro_torch.launch.roofline [--save-dir D]
+      [--csv out.csv]
+"""
+from __future__ import annotations
+
+import json
+import os
+import sys
+from typing import Optional
+
+from repro_torch.config import parse_cli
+from repro_torch.configs.registry import all_cells
+from repro_torch.launch.dryrun import DEFAULT_SAVE
+from repro_torch.launch.dryrun_lib import HW, cell_path
+
+NOTES = {
+    "compute": "compute-bound: fewer redundant FLOPs (remat policy) or "
+               "more of them on the tensor cores (the plain float32 "
+               "backwards) moves it",
+    "memory": "HBM-bound: fewer bytes a step (fused elementwise passes, "
+              "bf16 copies) or more reuse per byte",
+}
+
+
+def load_cells(save_dir: str) -> list:
+    rows = []
+    for arch, shape, _ in all_cells():
+        path = cell_path(save_dir, arch, shape)
+        if os.path.exists(path):
+            with open(path) as f:
+                rows.append(json.load(f))
+    return rows
+
+
+def roofline_row(res: dict, step_time_s: Optional[float] = None) -> dict:
+    if res.get("status") != "ok":
+        return {"arch": res["arch"], "shape": res["shape"],
+                "status": res.get("reason", res.get("status"))}
+    mem = res["memory"]
+    row = {"arch": res["arch"], "shape": res["shape"], "status": "ok",
+           "devices": res["devices"],
+           "model_flops_global": res["model_flops_global"],
+           "peak_hbm_gb": mem["peak_bytes"] / 1e9,
+           "fits_hbm": mem["peak_bytes"] <= res["card_bytes"],
+           "cards_needed": mem["cards_needed"]}
+    probed = res.get("cost_probed")
+    if probed is None:
+        row["probe"] = res.get("probe", "not probed")
+    else:
+        compute_s = probed["flops"] / HW["peak_flops_bf16"]
+        memory_s = probed["bytes_accessed"] / HW["hbm_bw"]
+        terms = {"compute": compute_s, "memory": memory_s}
+        dominant = max(terms, key=terms.get)
+        model_flops_dev = res["model_flops_global"] / res["devices"]
+        ideal = model_flops_dev / HW["peak_flops_bf16"]
+        row.update({
+            "compute_s": compute_s, "memory_s": memory_s,
+            "collective_s": 0.0, "dominant": dominant,
+            "useful_ratio": model_flops_dev / max(probed["flops"], 1e-30),
+            "roofline_fraction": ideal / max(terms[dominant], 1e-30),
+            "note": NOTES[dominant]})
+    if step_time_s is not None:
+        flops = res.get("train_model_flops", res["model_flops_global"])
+        row["step_time_s"] = step_time_s
+        row["mfu"] = flops / (step_time_s * HW["peak_flops_bf16"])
+    return row
+
+
+def markdown_table(rows: list) -> str:
+    hdr = ("| arch | shape | compute s | memory s | collective s | dominant "
+           "| useful ratio | roofline frac | GB (args) | cards | "
+           "step s | mfu |\n"
+           "|---|---|---|---|---|---|---|---|---|---|---|---|")
+    out = [hdr]
+    g = lambda r, k, f: format(r[k], f) if k in r else "—"  # noqa: E731
+    for r in rows:
+        if r.get("status") != "ok":
+            out.append(f"| {r['arch']} | {r['shape']} | — | — | — | skipped "
+                       f"| — | — | — | — | — | ({r['status'][:40]}…) |")
+            continue
+        dominant = (f"**{r['dominant']}**" if "dominant" in r
+                    else r.get("probe", "—"))
+        out.append(
+            f"| {r['arch']} | {r['shape']} | {g(r, 'compute_s', '.3g')} | "
+            f"{g(r, 'memory_s', '.3g')} | {g(r, 'collective_s', '.3g')} | "
+            f"{dominant} | {g(r, 'useful_ratio', '.2f')} | "
+            f"{g(r, 'roofline_fraction', '.2f')} | {r['peak_hbm_gb']:.1f} | "
+            f"{r['cards_needed']} | {g(r, 'step_time_s', '.3f')} | "
+            f"{g(r, 'mfu', '.4f')} |")
+    return "\n".join(out)
+
+
+def main(argv=None) -> int:
+    args = parse_cli(argv if argv is not None else sys.argv[1:])
+    save_dir = os.path.abspath(args.get("save-dir", DEFAULT_SAVE))
+    rows = [roofline_row(r) for r in load_cells(save_dir)]
+    print(markdown_table(rows))
+    out_json = os.path.join(save_dir, "roofline.json")
+    with open(out_json, "w") as f:
+        json.dump(rows, f, indent=1)
+    print(f"\nwrote {out_json} "
+          f"({sum(1 for r in rows if r.get('status') == 'ok')} ok rows)")
+    if "csv" in args:
+        import csv
+        keys = ["arch", "shape", "compute_s", "memory_s", "collective_s",
+                "dominant", "useful_ratio", "roofline_fraction",
+                "peak_hbm_gb", "cards_needed", "step_time_s", "mfu"]
+        with open(args["csv"], "w", newline="") as f:
+            w = csv.DictWriter(f, keys, extrasaction="ignore")
+            w.writeheader()
+            for r in rows:
+                if r.get("status") == "ok":
+                    w.writerow(r)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

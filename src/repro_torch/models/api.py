@@ -3,7 +3,7 @@ five families: dense and MoE (`transformer`), ssm (Mamba-2), hybrid
 (RecurrentGemma) and encdec (Whisper):
 
     m = get_model(cfg)
-    params = m.init(seed, device="cuda")
+    params = m.init(seed, device="cuda")     # or m.abstract(): meta tensors
     loss, metrics = m.loss(params, {"tokens": tokens, "labels": labels})
     logits, cache = m.prefill(params, {"tokens": tokens}, pad_to=n)
     logits, cache = m.decode(params, cache, tokens)
@@ -15,7 +15,10 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.config import DENSE, ENCDEC, HYBRID, MOE, SSM, ModelConfig
+import torch
+
+from repro_torch.config import (DECODE, DENSE, ENCDEC, HYBRID, MOE, PREFILL,
+                                SSM, TRAIN, ModelConfig, ShapeConfig)
 from repro_torch.models import encdec, mamba2, rglru, transformer
 from repro_torch.models import params as PT
 
@@ -44,6 +47,10 @@ class Model:
         """Seeded parameters (`generator`: a torch.Generator or an int)."""
         return PT.init_params(self.specs(), generator, device)
 
+    def abstract(self):
+        """The parameters' shapes and dtypes on the meta device."""
+        return PT.abstract_params(self.specs())
+
     def param_count(self) -> int:
         return PT.param_count_tree(self.specs())
 
@@ -64,10 +71,36 @@ class Model:
     def cache_specs(self, batch: int, max_seq: int):
         return self.mod.cache_specs(self.cfg, batch, max_seq)
 
+    def abstract_cache(self, batch: int, max_seq: int):
+        """The decode cache's shapes and dtypes on the meta device."""
+        return PT.abstract_params(self.cache_specs(batch, max_seq))
+
     def init_cache(self, batch: int, max_seq: int, device="cuda"):
         cache = PT.init_params(self.cache_specs(batch, max_seq), 0, device)
         cache["pos"] = 0
         return cache
+
+    # -- inputs ---------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """Meta-tensor stand-ins for every model input of this shape: int32
+        tokens (and labels for train); an encoder-decoder's train and
+        prefill also take frames (B, enc_seq, d_model) in the activation
+        dtype."""
+        B, S = shape.global_batch, shape.seq_len
+        tok = lambda *sh: torch.empty(sh, dtype=torch.int32, device="meta")  # noqa: E731
+        if shape.kind == TRAIN:
+            out = {"tokens": tok(B, S), "labels": tok(B, S)}
+        elif shape.kind == PREFILL:
+            out = {"tokens": tok(B, S)}
+        elif shape.kind == DECODE:
+            out = {"tokens": tok(B)}
+        else:
+            raise ValueError(shape.kind)
+        if self.cfg.family == ENCDEC and shape.kind in (TRAIN, PREFILL):
+            out["frames"] = torch.empty(
+                (B, self.cfg.enc_seq, self.cfg.d_model),
+                dtype=PT.DTYPES[self.cfg.dtype], device="meta")
+        return out
 
 
 def get_model(cfg: ModelConfig) -> Model:

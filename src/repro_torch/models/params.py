@@ -1,4 +1,5 @@
-"""ParamSpec trees: one declaration drives init and parameter counts.
+"""ParamSpec trees: one declaration drives init, abstract shapes and
+parameter counts.
 
 Each module declares its parameters as a nested dict of ``ParamSpec``
 leaves, as in the reference. `init_params` draws the reference's
@@ -109,6 +110,13 @@ def unflatten(tree, leaves: dict, prefix=""):
         return leaves[prefix]
     return {k: unflatten(v, leaves, f"{prefix}/{k}" if prefix else str(k))
             for k, v in tree.items()}
+
+
+def abstract_params(spec_tree):
+    """The tree's shapes and dtypes as tensors on the ``meta`` device:
+    nothing is allocated (the reference's ShapeDtypeStructs)."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=DTYPES[s.dtype],
+                                          device="meta"), spec_tree)
 
 
 def param_count_tree(spec_tree) -> int:

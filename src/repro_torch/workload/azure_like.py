@@ -1,10 +1,13 @@
 """Synthetic VM utilization population matched to the Azure trace analysis.
 
-Host numpy, copied from `repro.workload.azure_like` (the vectorized
-matrix generator only). The draw order is part of the contract: the
-same seed gives bit-identical (T, n_vms) matrices on both sides.
+Host numpy, copied from `repro.workload.azure_like`: the per-VM
+generator `sample_population` (the examples' traces) and the vectorized
+matrix generator. The draw order is part of the contract: the same seed
+gives bit-identical traces and (T, n_vms) matrices on both sides.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 
@@ -17,6 +20,71 @@ _COV_BUCKETS = [
     ((0.40, 1.00), 0.20),
     ((1.00, 2.50), 0.30),
 ]
+
+
+@dataclass
+class VMTrace:
+    util: np.ndarray          # (T,) utilization in [0, 1], 5-min interval
+    target_mean: float
+    target_cov: float
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.util))
+
+    @property
+    def cov(self) -> float:
+        m = max(self.mean, 1e-9)
+        return float(np.std(self.util) / m)
+
+
+def _draw_targets(rng: np.random.Generator) -> tuple:
+    # mean utilization: lognormal-ish with ~43% below 0.10
+    mean = float(np.clip(np.exp(rng.normal(np.log(0.13), 1.0)), 0.005, 0.9))
+    u = rng.random()
+    acc = 0.0
+    for (lo, hi), p in _COV_BUCKETS:
+        acc += p
+        if u <= acc:
+            return mean, float(rng.uniform(lo, hi))
+    return mean, 0.5
+
+
+def _gen_series(rng, n, mean, cov) -> np.ndarray:
+    """AR(1) + bursts in log space, calibrated after clipping."""
+    rho = 0.97                               # ~2.8h decorrelation at 5-min
+    sigma = max(cov, 0.02)
+    scale = 1.0
+    for _ in range(4):                       # fixed-point on clipped stats
+        eps = rng.normal(0, sigma * np.sqrt(1 - rho ** 2), n)
+        x = np.zeros(n)
+        for i in range(1, n):
+            x[i] = rho * x[i - 1] + eps[i]
+        # bursts: occasional multi-interval spikes (load surges)
+        n_bursts = rng.poisson(n / 600)
+        burst = np.zeros(n)
+        for _ in range(n_bursts):
+            s = rng.integers(0, n)
+            ln = int(rng.integers(3, 24))
+            burst[s:s + ln] += rng.uniform(1.0, 3.0) * sigma
+        series = mean * scale * np.exp(x - 0.5 * sigma ** 2 + burst)
+        series = np.clip(series, 0.0, 1.0)
+        got_mean = series.mean()
+        if abs(got_mean - mean) / max(mean, 1e-9) < 0.05:
+            break
+        scale *= mean / max(got_mean, 1e-9)
+    return series
+
+
+def sample_population(n_vms: int = 1000, days: int = 7,
+                      seed: int = 0) -> list:
+    rng = np.random.default_rng(seed)
+    n = int(days * 24 * 3600 / INTERVAL_S)
+    out = []
+    for _ in range(n_vms):
+        mean, cov = _draw_targets(rng)
+        out.append(VMTrace(_gen_series(rng, n, mean, cov), mean, cov))
+    return out
 
 
 def _draw_targets_matrix(rng, n):

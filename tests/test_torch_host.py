@@ -11,6 +11,7 @@ from repro.cluster.placement import (PlacementConfig as RefPC,
                                      PlacementEngine as RefPE)
 from repro.cluster.slices import (paper_family as ref_paper_family,
                                   tpu_v5e_family as ref_tpu_family)
+from repro.workload.azure_like import sample_population as ref_sample_population
 from repro.workload.azure_like import \
     sample_population_matrix as ref_sample_population_matrix
 from repro_torch.carbon.intensity import ConstantProvider, TraceProvider
@@ -18,7 +19,8 @@ from repro_torch.carbon.regions import REGIONS
 from repro_torch.cluster.migration import MigrationCostModel
 from repro_torch.cluster.placement import PlacementConfig, PlacementEngine
 from repro_torch.cluster.slices import paper_family, tpu_v5e_family
-from repro_torch.workload.azure_like import sample_population_matrix
+from repro_torch.workload.azure_like import (sample_population,
+                                             sample_population_matrix)
 
 
 @pytest.mark.parametrize("n,seed,chunk", [(37, 0, 20000), (53, 4, 16)])
@@ -27,6 +29,17 @@ def test_sample_population_matrix_is_bit_identical(n, seed, chunk):
     ref = ref_sample_population_matrix(n, days=1, seed=seed, chunk=chunk)
     assert got.shape == ref.shape == (288, n)
     assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("n,days,seed", [(7, 1, 2), (4, 3, 5)])
+def test_sample_population_is_bit_identical(n, days, seed):
+    got = sample_population(n, days=days, seed=seed)
+    ref = ref_sample_population(n, days=days, seed=seed)
+    assert len(got) == len(ref) == n
+    for a, b in zip(got, ref):
+        assert np.array_equal(a.util, b.util)
+        assert (a.target_mean, a.target_cov, a.mean, a.cov) == (
+            b.target_mean, b.target_cov, b.mean, b.cov)
 
 
 def test_region_table_is_identical():
