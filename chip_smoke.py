@@ -164,6 +164,18 @@ raising on failure so the run exits non-zero:
      between two slices (both this card) and a suspend/resume; every restore
      bit-equal to its checkpoint, every loss equal to an uninterrupted
      job's, average C(t) within 1.1 x the target;
+  10b. mesh_train: dense training sharded over the cards, W =
+     torch.cuda.device_count() processes (spawned, one card each, NCCL,
+     TF32 off, one time limit for all): SmolLM-135M whole in float32,
+     1,024 x 8 tokens a step, 2 steps, on the mesh (data W, model 1) and,
+     for an even W, (data W/2, model 2), where the model axis drops on
+     the 9 heads and stays on d_ff and the vocabulary; every step held
+     against the same step unsharded on card 0 at phase 8's bars
+     (`_hold_train_step`), the first step's collectives counted (wire
+     bytes per device by kind, the roofline's collective seconds at
+     NVLink's 450 GB/s a direction); then an ElasticJob on all W cards
+     migrates to the first ceil(W/2) and back, its state bit-equal
+     across each reshard (cuda:0 to cuda:0 with one card);
   11. the single-card dry run (`python -m repro_torch.launch.dryrun
      --all`): the 40 cells, 32 run and 8 skipped with the reference's
      reasons; each cell's memory from its abstract trees with
@@ -183,7 +195,8 @@ raising on failure so the run exits non-zero:
      against CPU, summaries equal.
 
 Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7,
-7b, 9 (each model's timed steps), 10, 11 and 12 (the defaults' runs)
+7b, 9 (each model's timed steps), 10, 10b (each mesh's steps), 11 and 12
+(the defaults' runs)
 are the main paths (11 and 12 are counted, not pinned): every
 kernel's launch counter is set to 0
 just before each path and read just after; each path must have launched
@@ -197,7 +210,8 @@ RecurrentGemma 72 RG-LRU launches (6 recurrent blocks x 4
 microbatches: forward, the remat's recompute and the backward) and 16
 flash launches with lse (2 x 4, twice), of Whisper 72 flash launches
 with lse (6 encoder + 12 decoder attentions x 4 microbatches); 30 flash
-launches with lse a step in 10) and no others, every flash launch on
+launches with lse a step in 10, and a step on each card in 10b, on the
+float32 cuda_core route) and no others, every flash launch on
 the wgmma route (with lse in 9 and 10), every SSD launch on the
 mma_sync route and every RG-LRU launch on the ring route.
 
@@ -1882,6 +1896,55 @@ FAMILY_CROSS = [(TRAIN_ARCH, 2, {}, 512, 2, 2),
                 ("whisper-base", 2, {"n_enc_layers": 2}, 64, 2, 1)]
 
 
+def _hold_train_step(what, got, gm, want, wm, p0, lr):
+    """A train step's state `got` and metrics `gm` against `want`, `wm`
+    (the same step from the same params `p0`, {path: tensor}): the loss
+    and grad_norm within 1e-3 relative, m and v within 1e-3 of each
+    leaf's max, the params within 1e-3 (allclose), and the updates
+    themselves (params after minus before) within 1e-3 relative plus
+    1e-2 of the learning rate `lr`, save for at most UPDATE_OFF_SHARE of
+    the entries: a gradient within rounding of 0 can flip Adam's first
+    step, of size lr. Prints the leaf with the worst error of m, of v
+    and of the gradients; returns the errors; raises past a bar."""
+    from repro_torch.models.params import flatten
+    errs = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
+            for k in ("loss", "grad_norm")}
+    w = dict(flatten(want))
+    worst, flips, off, n = {"opt": 0.0, "params": 0.0}, 0, 0, 0
+    # the worst leaf of m and of v: (err / max, path); m = (1 - b1) x the
+    # clipped gradient on a first step, so m's leaf is the gradients'
+    leaf = {"m": (0.0, None), "v": (0.0, None)}
+    for path, t in flatten(got):
+        a, b = t.cpu(), w[path].cpu()
+        if path.startswith("opt/"):
+            err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+            worst["opt"] = max(worst["opt"], err)
+            kind = path.split("/")[1]
+            leaf[kind] = max(leaf[kind], (err, path[len("opt/m/"):]))
+        elif path.startswith("params/"):
+            worst["params"] = max(worst["params"], float(
+                ((a - b).abs() / (1e-3 + 1e-3 * b.abs())).max()))
+            before = p0[path[len("params/"):]].cpu()
+            da, db = a - before, b - before
+            flips += int((da.sign() != db.sign()).sum())
+            off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * lr).sum())
+            n += b.numel()
+    worst_leaf = {"grads": {"leaf": leaf["m"][1], "err_over_max": leaf["m"][0],
+                            "from": "m = (1 - b1) x clipped grads, step 1"},
+                  **{k: {"leaf": leaf[k][1], "err_over_max": leaf[k][0]}
+                     for k in ("m", "v")}}
+    print(f"[{what}] worst leaf: {json.dumps(worst_leaf)}", flush=True)
+    if max(errs.values()) > 1e-3 or worst["opt"] > 1e-3 or (
+            worst["params"] > 1.0) or off > UPDATE_OFF_SHARE * n:
+        raise AssertionError(f"{what}: {errs}, m/v err / max {worst['opt']}, "
+                             f"params margin {worst['params']}, updates off "
+                             f"the bar {off} of {n}")
+    return {"rel_err": errs, "mv_err_over_max": worst["opt"],
+            "worst_leaf": worst_leaf, "params_margin": worst["params"],
+            "update_sign_flips": flips, "updates_off_bar": off,
+            "params_total": n}
+
+
 def train_cross_check(dev, arch, n_layers, overrides, seq, batch, micro):
     """One AdamW train step at the published widths and reduced depth,
     float32, TF32 off, from the same state on the card and on the CPU:
@@ -1914,48 +1977,12 @@ def train_cross_check(dev, arch, n_layers, overrides, seq, batch, micro):
     t0 = time.perf_counter()
     want, wm = step(state, to_device(data, "cpu"))
     cpu_s = time.perf_counter() - t0
-    errs = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
-            for k in ("loss", "grad_norm")}
-    w = dict(flatten(want))
-    worst, flips, off, n = {"opt": 0.0, "params": 0.0}, 0, 0, 0
-    # the worst leaf of m and of v: (err / max, path); m = (1 - b1) x the
-    # clipped gradient on this first step, so m's leaf is the gradients'
-    leaf = {"m": (0.0, None), "v": (0.0, None)}
-    lr = tcfg.optimizer.lr
-    for path, t in flatten(got):
-        a, b = t.cpu(), w[path]
-        if path.startswith("opt/"):
-            err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
-            worst["opt"] = max(worst["opt"], err)
-            kind = path.split("/")[1]
-            leaf[kind] = max(leaf[kind], (err, path[len("opt/m/"):]))
-        elif path.startswith("params/"):
-            worst["params"] = max(worst["params"], float(
-                ((a - b).abs() / (1e-3 + 1e-3 * b.abs())).max()))
-            before = p0[path[len("params/"):]]
-            da, db = a - before, b - before
-            flips += int((da.sign() != db.sign()).sum())
-            off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * lr).sum())
-            n += b.numel()
-    worst_leaf = {"grads": {"leaf": leaf["m"][1], "err_over_max": leaf["m"][0],
-                            "from": "m = (1 - b1) x clipped grads, step 1"},
-                  **{k: {"leaf": leaf[k][1], "err_over_max": leaf[k][0]}
-                     for k in ("m", "v")}}
-    print(f"[{arch} train card vs CPU] worst leaf: {json.dumps(worst_leaf)}",
-          flush=True)
-    if max(errs.values()) > 1e-3 or worst["opt"] > 1e-3 or (
-            worst["params"] > 1.0) or off > UPDATE_OFF_SHARE * n:
-        raise AssertionError(f"{arch} train card vs CPU: {errs}, m/v err / "
-                             f"max {worst['opt']}, params margin "
-                             f"{worst['params']}, updates off the bar {off} "
-                             f"of {n}")
+    held = _hold_train_step(f"{arch} train card vs CPU", got, gm, want, wm,
+                            p0, tcfg.optimizer.lr)
     return {"arch": arch, "n_layers": n_layers, **overrides,
             "dtype": "float32", "seq_len": seq, "global_batch": batch,
-            "microbatch": micro, "loss": float(wm["loss"]), "rel_err": errs,
-            "mv_err_over_max": worst["opt"], "worst_leaf": worst_leaf,
-            "params_margin": worst["params"],
-            "update_sign_flips": flips, "updates_off_bar": off,
-            "params_total": n, "cpu_step_s": cpu_s, "launches": launches,
+            "microbatch": micro, "loss": float(wm["loss"]), **held,
+            "cpu_step_s": cpu_s, "launches": launches,
             "route_launches": routes}
 
 
@@ -2045,6 +2072,223 @@ def train_full_width(dev, arch, n_layers, seq, batch, micro, remat, steps):
             "route_launches": routes, "profile_microbatch": {
                 "tokens": micro * seq, "wall_s": wall, "device_s": dev_s,
                 "top": top}}
+
+
+# ---------------------------------------------------------------------------
+# Training sharded over a mesh of the cards
+# ---------------------------------------------------------------------------
+
+MESH_SEQ, MESH_BATCH, MESH_STEPS = 1024, 8, 2
+MESH_TIMEOUT_S = 600
+
+
+def _mesh_rank(rank, world, store, out):
+    """One process of `mesh_train_phase` (spawned): card `rank`, NCCL,
+    TF32 off; rank 0 writes the phase's record to `out`."""
+    import datetime
+
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=300),
+                            device_id=torch.device("cuda", rank))
+    try:
+        record = _mesh_rank_work(rank, world)
+        if rank == 0:
+            Path(out).write_text(json.dumps(record))
+    finally:
+        dist.destroy_process_group()
+
+
+def _gathered_cpu(state, shardings, keep):
+    """{path: CPU tensor} of a state gathered from its shards (a
+    collective over its mesh); {} where not `keep`."""
+    from repro_torch.models.params import flatten, gather_tree
+    full = gather_tree(state, shardings)
+    return ({p: t.to("cpu", copy=True) for p, t in flatten(full)} if keep
+            else {})
+
+
+def _mesh_rank_work(rank, world):
+    """SmolLM-135M (f32, 30 layers) at sequence 1,024, global batch 8:
+    rank 0 takes MESH_STEPS steps unsharded on its card; then each mesh
+    takes the same steps from the same seed, held against them after
+    every step (`_hold_train_step`), the first step's collectives
+    counted and every flash launch counted; then an ElasticJob on all
+    cards migrates to the first ceil(W/2) and back, its state gathered
+    before and after each migration and held bit-equal."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.config import MeshConfig, OptimizerConfig, TrainConfig
+    from repro_torch.core.elastic import ElasticJob
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.collectives import COUNTER
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.launch.roofline import collective_seconds
+    from repro_torch.models.params import flatten
+    from repro_torch.train import loop as TL
+    dev = torch.device("cuda", rank)
+    model = _family_model(TRAIN_ARCH, None, "float32")
+    opt = OptimizerConfig(warmup_steps=0)
+    tcfg = TrainConfig(seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                       optimizer=opt)
+    data = _family_batches(model.cfg, MESH_SEQ, MESH_BATCH, SEED,
+                           torch.float32)
+    batches = [next(data) for _ in range(MESH_STEPS)]
+    want = []            # (params before, state after, metrics) per step
+    if rank == 0:
+        state = TL.init_state(model, opt, SEED, dev)
+        step = TL.make_train_step(model, tcfg)
+        before = {p: t.to("cpu", copy=True)
+                  for p, t in flatten(state["params"])}
+        for b in batches:
+            state, m = step(state, to_device(b, dev))
+            after = {p: t.to("cpu", copy=True) for p, t in flatten(state)}
+            want.append((before, after, {k: float(v) for k, v in m.items()}))
+            before = {p[len("params/"):]: t for p, t in after.items()
+                      if p.startswith("params/")}
+        del state, step
+        _free_device_memory()
+    dist.barrier()
+    shapes = [(world, 1)] + ([(world // 2, 2)] if world % 2 == 0 else [])
+    meshes = []
+    for data_n, model_n in shapes:
+        mesh = make_mesh(MeshConfig(data=data_n, model=model_n), "cuda")
+        sh = TL.state_shardings(model, opt, mesh)
+        state = TL.init_state(model, opt, SEED, mesh=mesh)
+        step = TL.make_train_step(model, tcfg, mesh)
+        times, held, losses = [], [], []
+        torch.cuda.synchronize()
+        _zero_counts()
+        for i, b in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if i == 0:
+                COUNTER.reset()
+                with COUNTER.on():
+                    state, m = step(state, b)
+            else:
+                state, m = step(state, b)
+            metrics = {k: float(v) for k, v in m.items()}      # syncs
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+            if i == 0:
+                launches = {r: c for r, c in _read_routes()[
+                    "flash_attention"].items() if c}
+            got = _gathered_cpu(state, sh, rank == 0)
+            if rank == 0:
+                held.append(_hold_train_step(
+                    f"mesh_train {data_n}x{model_n} step {i + 1} vs "
+                    f"unsharded", got, metrics, want[i][1], want[i][2],
+                    want[i][0], opt.lr))
+            del got
+        flash = {r: c for r, c in _read_routes()["flash_attention"].items()
+                 if c}
+        per_step = model.cfg.n_layers * len(batches)
+        if flash != {"cuda_core+lse": per_step} or launches != {
+                "cuda_core+lse": model.cfg.n_layers}:
+            raise AssertionError(f"mesh {data_n}x{model_n} rank {rank}: "
+                                 f"flash launches {flash}, expected "
+                                 f"{per_step} on cuda_core+lse")
+        summary = COUNTER.summary()
+        meshes.append({
+            **describe(mesh), "shape": [data_n, model_n],
+            "step_times_s": times, "step_time_s": times[-1],
+            "losses": losses, "held": held,
+            "flash_launches_per_rank": per_step,
+            "wire_bytes_per_device_by_kind": {
+                k: v["wire_bytes"] for k, v in summary["per_kind"].items()},
+            "collective_counts_by_kind": {
+                k: v["count"] for k, v in summary["per_kind"].items()},
+            "total_wire_bytes_per_device": summary["total_wire_bytes"],
+            "collective_s": collective_seconds(summary["total_wire_bytes"],
+                                               mesh.n_devices)})
+        del state, step
+        _free_device_memory()
+    cards = [torch.device("cuda", r) for r in range(world)]
+    half = cards[:(world + 1) // 2]
+    migrations, bit_equal = [], []
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as ckpt:
+        job = ElasticJob(model, tcfg, ckpt)
+        job.start(cards)
+        job.train_step(batches[0])
+        for target in (half, cards):
+            before = (_gathered_cpu(job.state, job.state_shardings(),
+                                    rank == 0) if job.member else {})
+            migrations.append(job.migrate(target))
+            after = (_gathered_cpu(job.state, job.state_shardings(),
+                                   rank == 0) if job.member else {})
+            if rank == 0:
+                same = before.keys() == after.keys() and all(
+                    torch.equal(before[p], after[p]) for p in before)
+                if not same:
+                    raise AssertionError(f"mesh_train: the state after the "
+                                         f"migration to {len(target)} cards "
+                                         f"differs from the one before")
+                bit_equal.append(len(target))
+        job.train_step(batches[1])
+        dist.barrier()
+    return {"world": world, "arch": TRAIN_ARCH, "dtype": "float32",
+            "seq_len": MESH_SEQ, "global_batch": MESH_BATCH,
+            "steps": MESH_STEPS, "meshes": meshes,
+            "flash_launches": world * sum(m["flash_launches_per_rank"]
+                                          for m in meshes),
+            "migrations": migrations, "bit_equal_after_migration_to":
+                bit_equal,
+            "unsharded_losses": [w[2]["loss"] for w in want]}
+
+
+def mesh_train_phase(dev):
+    """Dense training sharded over the cards: W = the card count ranks,
+    one card each, over NCCL (`_mesh_rank_work`), spawned with a time
+    limit; every rank killed if one fails or the limit passes. Prints W,
+    each mesh, its step times, the first step's wire bytes per device by
+    kind with the roofline's collective seconds, the migrations and the
+    flash launches."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix="mesh_train_") as d:
+        out = Path(d) / "record.json"
+        ctx = mp.start_processes(_mesh_rank, args=(
+            world, str(Path(d) / "store"), str(out)), nprocs=world,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"mesh_train outlived "
+                                       f"{MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        record = json.loads(out.read_text())
+    print(f"[mesh_train] W = {world} card(s), {TRAIN_ARCH} f32 at "
+          f"{MESH_BATCH} x {MESH_SEQ} tokens a step", flush=True)
+    for m in record["meshes"]:
+        errs = [{k: h[k] for k in ("rel_err", "mv_err_over_max",
+                                   "params_margin", "updates_off_bar")}
+                for h in m["held"]]
+        print(f"[mesh_train] mesh {m['axes']}: step times "
+              f"{m['step_times_s']} s, wire bytes per device per step by "
+              f"kind {m['wire_bytes_per_device_by_kind']} (total "
+              f"{m['total_wire_bytes_per_device']}, collective_s "
+              f"{m['collective_s']} at NVLink 4's 450 GB/s a direction, "
+              f"a data-sheet figure), vs unsharded (bars 1e-3): {errs}",
+              flush=True)
+    print(f"[mesh_train] migrations {record['migrations']}, bit-equal "
+          f"after each; flash launches {record['flash_launches']}",
+          flush=True)
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -2651,6 +2895,7 @@ def main():
         _free_device_memory()
     trainer = timed("carbon_trainer", carbon_trainer, dev)
     _free_device_memory()
+    mesh_train = timed("mesh_train", mesh_train_phase, dev)
     smollm = f"{TRAIN_ARCH}__train_4k"
     dry = timed("dryrun", dryrun_phase, dev,
                 {smollm: train[0]["step_time_s"]})
@@ -2671,6 +2916,8 @@ def main():
                f"carbon_serve_{CARBON_SERVE_ARCH}": cserve["launches"],
                **{f"train_{r['arch']}": r["launches"] for r in train},
                "carbon_trainer": trainer["launches"],
+               "mesh_train": {**dict.fromkeys(_kernel_counters(), 0),
+                              "flash_attention": mesh_train["flash_launches"]},
                "dryrun": dry["launches"], "examples": examples["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
@@ -2706,7 +2953,8 @@ def main():
               "bf16_kernels_vs_plain": bf16_check, "serving": serve,
               "carbon_serve": cserve, "flash_train": flash_train,
               "train_cross_check": train_cross, "train_full_width": train,
-              "carbon_trainer": trainer, "scan_backward": scan_bwd,
+              "carbon_trainer": trainer, "mesh_train": mesh_train,
+              "scan_backward": scan_bwd,
               "dryrun": {k: v for k, v in dry.items() if k != "table"},
               "examples": examples}
     OUT.mkdir(exist_ok=True)
@@ -2762,6 +3010,7 @@ def main():
                         if k != "checked"},
         "carbon_trainer": {k: v for k, v in trainer.items()
                            if k not in ("losses", "twin_losses")},
+        "mesh_train": mesh_train,
         "scan_backward": {k: {kk: vv for kk, vv in v.items()
                               if kk != "checked"}
                           for k, v in scan_bwd.items()}}}), flush=True)

@@ -237,8 +237,9 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class MeshConfig:
-    """A device mesh's axis sizes, as in the reference. The port runs on
-    one card (``n_devices`` 1); the multi-card layout is its own item."""
+    """A device mesh's axis sizes and names, as in the reference
+    (`repro_torch.launch.mesh.make_mesh` builds it over the processes of
+    a torch.distributed process group, one device each)."""
     data: int = 1
     model: int = 1
     pod: int = 1

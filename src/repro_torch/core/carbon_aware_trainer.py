@@ -17,6 +17,13 @@ intensity variation in seconds; with the default wall clock it runs in
 real time. The decisions are host Python, expression for expression the
 reference's, on the port's own policy, plant model, slices and carbon
 providers.
+
+`slice_device_lists` names each slice's devices: with a process group
+(one process a device) the first min(chips, world) ranks, real device
+subsets that a migration reshards the job across; without one, the one
+device for every slice, as virtual slices. With more than one process
+every process runs the trainer, and rank 0's clock and decisions are
+broadcast to the others each step, so all take the same actions.
 """
 from __future__ import annotations
 
@@ -24,11 +31,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
+import torch.distributed as dist
+
 from repro_torch.carbon.intensity import CarbonIntensityProvider
 from repro_torch.cluster.slices import SliceFamily
 from repro_torch.config import CarbonConfig
 from repro_torch.core.container import ContainerState, PlantModel
-from repro_torch.core.elastic import ElasticJob
+from repro_torch.core.elastic import ElasticJob, agree
 from repro_torch.core.policy import Action, CarbonContainerPolicy
 from repro_torch.power.telemetry import StepTelemetry, TelemetryWindow
 
@@ -37,6 +46,16 @@ from repro_torch.power.telemetry import StepTelemetry, TelemetryWindow
 # card that `nvidia-smi --query-gpu=name,power.limit` reports as
 # "NVIDIA H100 80GB HBM3, 700.00 W".
 H100_BF16_PEAK_FLOPS = 989e12
+
+
+def slice_device_lists(family: SliceFamily, device="cuda") -> list:
+    """The devices of each slice: with a process group, ranks
+    0..min(chips, world) - 1 (at least one); without one, [`device`]."""
+    if not dist.is_initialized():
+        return [[device] for _ in range(len(family))]
+    world = dist.get_world_size()
+    return [list(range(max(1, min(family[i].chips, world))))
+            for i in range(len(family))]
 
 
 @dataclass
@@ -109,7 +128,7 @@ class CarbonAwareTrainer:
             t_wall = time.perf_counter()
             metrics = self.job.train_step(next(it))   # synced: floats
             wall_dt = time.perf_counter() - t_wall
-            step_dt = (self.sim_seconds_per_step or wall_dt)
+            step_dt = agree(self.sim_seconds_per_step or wall_dt)
             # vertical scaling: duty-cycle the step loop
             idle_dt = step_dt * (1.0 / max(self.state.duty, 1e-3) - 1.0) \
                 if self.state.duty < 1.0 else 0.0
@@ -134,9 +153,9 @@ class CarbonAwareTrainer:
         c = self.carbon.intensity(self._now())
         demand = self._demand_estimate()
         self.state.observe_demand(demand)
-        action: Action = self.policy.decide(
+        action: Action = agree(self.policy.decide(
             self.family, self.state, demand, c,
-            self.cfg.target_rate, self.cfg.epsilon)
+            self.cfg.target_rate, self.cfg.epsilon))
         self._apply(action, c, demand)
 
     def _apply(self, action: Action, c: float, demand: float):

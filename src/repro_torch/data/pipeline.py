@@ -6,9 +6,9 @@ Two generators, host numpy, bit-equal to the reference's for a seed:
     transitions, a learnable structure, so example runs show the loss
     fall.
 
-`to_device` puts a host batch on one device; it stands where the
-reference's ``shard_batch`` places a batch on a mesh, which has no
-meaning on one card.
+`to_device` puts a host batch on one device; `shard_batch` gives each
+process of a mesh its ('batch', 'seq') slice of the global host batch,
+as the reference's ``shard_batch`` places a batch on a mesh.
 """
 from __future__ import annotations
 
@@ -59,3 +59,21 @@ def to_device(batch: dict, device="cuda") -> dict:
     dev = resolve_device(device)
     return {k: torch.as_tensor(np.asarray(v) if not isinstance(
         v, torch.Tensor) else v).to(dev) for k, v in batch.items()}
+
+
+def shard_batch(batch: dict, mesh=None) -> dict:
+    """This process's ('batch', 'seq') slice of a global host batch (numpy
+    or tensors), on the mesh's device; without a mesh, the whole batch on
+    the card (`to_device`)."""
+    if mesh is None:
+        return to_device(batch)
+    from repro_torch.models.sharding import NamedSharding, logical_to_pspec
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.as_tensor(
+            np.asarray(v))
+        axes = ("batch", "seq") + (None,) * (t.dim() - 2) if t.dim() >= 2 \
+            else ("batch",)
+        out[k] = NamedSharding(mesh, logical_to_pspec(axes, t.shape,
+                                                      mesh)).shard(t)
+    return out

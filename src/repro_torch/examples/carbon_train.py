@@ -9,8 +9,8 @@ the grid's carbon intensity follows a diurnal trace.
 
 The reference fakes 8 CPU devices to get slices of 1, 2, 4 and 8 chips.
 Here the same four slices (power ∝ chips) are virtual slices over the
-one device: each migration checkpoints the job and restores it onto
-that device.
+one device (`slice_device_lists` without a process group): each
+migration checkpoints the job and restores it onto that device.
 """
 import sys
 import tempfile
@@ -20,7 +20,8 @@ from repro_torch.cluster.slices import Slice, SliceFamily
 from repro_torch.config import (CarbonConfig, OptimizerConfig, TrainConfig,
                                 parse_cli)
 from repro_torch.configs import get_arch
-from repro_torch.core.carbon_aware_trainer import CarbonAwareTrainer
+from repro_torch.core.carbon_aware_trainer import (CarbonAwareTrainer,
+                                                   slice_device_lists)
 from repro_torch.core.elastic import ElasticJob
 from repro_torch.data.pipeline import markov_stream
 from repro_torch.device import resolve_device
@@ -29,14 +30,14 @@ from repro_torch.power.model import LinearPowerModel
 
 
 def demo_family(device) -> tuple:
-    """Slice family of 1/2/4/8 chips, power ∝ chips, every slice on
-    `device`."""
+    """Slice family of 1/2/4/8 chips, power ∝ chips, and each slice's
+    devices (`slice_device_lists`)."""
     sizes = [1, 2, 4, 8]
     slices = [Slice(f"dev-{s}", s / sizes[len(sizes) // 2],
                     LinearPowerModel(40.0 * s, 110.0 * s), chips=s)
               for s in sizes]
     fam = SliceFamily(slices, baseline_idx=len(sizes) // 2)
-    return fam, [[device] for _ in fam.slices]
+    return fam, slice_device_lists(fam, device)
 
 
 def main(argv=None) -> dict:

@@ -15,6 +15,7 @@ lse) and whose backward recomputes each block's probabilities
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import torch
@@ -425,9 +426,28 @@ def ssd_chunked_bwd_torch(x, dt, a_log, b, c, d, dy, dh_final=None,
 RGLRU_C = 8.0
 
 
+@functools.cache
+def _cpu_math_warmed(n_threads: int) -> bool:
+    """Run float32 exp, expm1 and sqrt once on every intra-op thread.
+
+    On the CPU, a process's first exp or sqrt call on a freshly started
+    intra-op thread can return that thread's chunk (2,048 entries) up
+    to 1.5e-4 relative off; the thread's later calls are exact. Each op
+    here runs over n_threads × 4,096 entries, at least one chunk on
+    every thread, before the gates' first CPU call."""
+    t = torch.zeros(n_threads * 4096)
+    for op in (torch.exp, torch.expm1, torch.sqrt):
+        op(t)
+    return True
+
+
 def rglru_gates(x, r, i, lam):
     """The RG-LRU's decay and gated input, in float32:
-    a = exp(-c·softplus(lam)·σ(r)), gx = √(1 - a²)·σ(i)·x."""
+    a = exp(-c·softplus(lam)·σ(r)), gx = √(1 - a²)·σ(i)·x. On the CPU the
+    transcendental ops are warmed on every thread first
+    (`_cpu_math_warmed`)."""
+    if x.device.type == "cpu":
+        _cpu_math_warmed(torch.get_num_threads())
     log_a_base = -RGLRU_C * softplus(lam.float())
     rg = torch.sigmoid(r.float())
     ig = torch.sigmoid(i.float())

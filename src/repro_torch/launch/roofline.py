@@ -7,13 +7,18 @@ Terms per (arch × shape) cell, in seconds a step on one card:
                  layer probes count every layer, and the hand kernels'
                  work through `kernels.cost`)
   memory_s     = probed bytes ÷ 3.35 TB/s (HBM)
-  collective_s = 0.0: one card (``devices`` = 1) exchanges nothing
+  collective_s = wire bytes per device ÷ 450 GB/s (`collective_seconds`:
+                 NVLink 4 of the H100 SXM, 900 GB/s both directions
+                 together, a data-sheet figure, not a measurement); the
+                 single-card cells (``devices`` = 1) exchange nothing, 0.0
 
 with MODEL_FLOPS = 6·N·D (train) / 2·N·D (serve), N the active
 parameters; the useful ratio MODEL_FLOPS / probed FLOPs; the dominant
 term; the roofline fraction (MODEL_FLOPS at peak over the larger term);
 the peak bytes of the cell's arguments against the card's memory, and
-``cards_needed``. Given a step time measured on the card
+``cards_needed``. A sharded step's wire bytes come from
+`repro_torch.launch.collectives.COUNTER` (``res["collectives"]``). Given
+a step time measured on the card
 (`chip_smoke.py` passes SmolLM-135M's at ``train_4k``), `roofline_row`
 also carries ``step_time_s`` and ``mfu`` = the train model FLOPs
 (`dryrun_lib.train_model_flops`) / (``step_time_s`` × peak).
@@ -39,12 +44,29 @@ from repro_torch.configs.registry import all_cells
 from repro_torch.launch.dryrun import DEFAULT_SAVE
 from repro_torch.launch.dryrun_lib import HW, cell_path
 
+# NVLink 4 on the H100 SXM: 18 links, 900 GB/s per card in both
+# directions together (NVIDIA's data sheet), so 450 GB/s each way. A ring
+# collective's wire bytes per device leave the card one way.
+NVLINK_BW = 450e9
+
+
+def collective_seconds(wire_bytes_per_device: float, devices: int) -> float:
+    """The roofline's collective term: a step's wire bytes per device
+    (`collectives.CollectiveCounter.summary`) over NVLink's bandwidth per
+    direction; 0.0 on one device."""
+    if devices <= 1:
+        return 0.0
+    return wire_bytes_per_device / NVLINK_BW
+
+
 NOTES = {
     "compute": "compute-bound: fewer redundant FLOPs (remat policy) or "
                "more of them on the tensor cores (the plain float32 "
                "backwards) moves it",
     "memory": "HBM-bound: fewer bytes a step (fused elementwise passes, "
               "bf16 copies) or more reuse per byte",
+    "collective": "link-bound: fewer bytes on the wire a step (another "
+                  "mesh shape, or bf16 gradients)",
 }
 
 
@@ -75,13 +97,17 @@ def roofline_row(res: dict, step_time_s: Optional[float] = None) -> dict:
     else:
         compute_s = probed["flops"] / HW["peak_flops_bf16"]
         memory_s = probed["bytes_accessed"] / HW["hbm_bw"]
-        terms = {"compute": compute_s, "memory": memory_s}
+        collective_s = collective_seconds(
+            res.get("collectives", {}).get("total_wire_bytes", 0.0),
+            res["devices"])
+        terms = {"compute": compute_s, "memory": memory_s,
+                 "collective": collective_s}
         dominant = max(terms, key=terms.get)
         model_flops_dev = res["model_flops_global"] / res["devices"]
         ideal = model_flops_dev / HW["peak_flops_bf16"]
         row.update({
             "compute_s": compute_s, "memory_s": memory_s,
-            "collective_s": 0.0, "dominant": dominant,
+            "collective_s": collective_s, "dominant": dominant,
             "useful_ratio": model_flops_dev / max(probed["flops"], 1e-30),
             "roofline_fraction": ideal / max(terms[dominant], 1e-30),
             "note": NOTES[dominant]})

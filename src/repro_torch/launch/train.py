@@ -60,10 +60,11 @@ def main(argv=None) -> int:
     if "carbon-target" in args:
         from repro_torch.carbon.intensity import TraceProvider
         from repro_torch.cluster.slices import tpu_v5e_family
-        from repro_torch.core.carbon_aware_trainer import CarbonAwareTrainer
+        from repro_torch.core.carbon_aware_trainer import (
+            CarbonAwareTrainer, slice_device_lists)
         from repro_torch.core.elastic import ElasticJob
         family = tpu_v5e_family()
-        slice_devs = [[device] for _ in range(len(family))]
+        slice_devs = slice_device_lists(family, device)
         with tempfile.TemporaryDirectory(prefix="lxcc_") as tmp:
             job = ElasticJob(model, tcfg, args.get("ckpt-dir", tmp))
             job.start(slice_devs[family.baseline_idx])

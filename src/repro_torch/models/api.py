@@ -9,7 +9,11 @@ five families: dense and MoE (`transformer`), ssm (Mamba-2), hybrid
     logits, cache = m.decode(params, cache, tokens)
 
 An encdec prefill and loss also take ``batch["frames"]`` (B, enc_seq,
-d_model). `loss` (training) works for all five families.
+d_model). `loss` (training) works for all five families; on a mesh
+(``mesh=``, local shards of the parameters and of the batch) for the
+dense family. `pspecs`, `shardings` and `input_pspecs` lay the
+parameters and inputs out on a mesh by the logical-axis rules
+(`repro_torch.models.sharding`).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from repro_torch.config import (DECODE, DENSE, ENCDEC, HYBRID, MOE, PREFILL,
                                 SSM, TRAIN, ModelConfig, ShapeConfig)
 from repro_torch.models import encdec, mamba2, rglru, transformer
 from repro_torch.models import params as PT
+from repro_torch.models.sharding import logical_to_pspec
 
 _FAMILY_MODULES = {
     DENSE: transformer,
@@ -51,6 +56,12 @@ class Model:
         """The parameters' shapes and dtypes on the meta device."""
         return PT.abstract_params(self.specs())
 
+    def pspecs(self, mesh, overrides=None):
+        return PT.param_pspecs(self.specs(), mesh, overrides)
+
+    def shardings(self, mesh, overrides=None):
+        return PT.param_shardings(self.specs(), mesh, overrides)
+
     def param_count(self) -> int:
         return PT.param_count_tree(self.specs())
 
@@ -58,8 +69,19 @@ class Model:
         return self.mod.prepare(self.cfg, params)
 
     # -- compute ------------------------------------------------------------
-    def loss(self, params, batch, remat: str = "none"):
-        return self.mod.loss_fn(self.cfg, params, batch, remat=remat)
+    def loss(self, params, batch, remat: str = "none", mesh=None):
+        """(loss, metrics). On a mesh (`sharding.Mesh.for_batch` of the
+        global batch), `params` and `batch` are this process's shards
+        and the loss is its share: the losses of the processes that hold
+        distinct batch rows add up to the global loss."""
+        if mesh is None:
+            return self.mod.loss_fn(self.cfg, params, batch, remat=remat)
+        if self.cfg.family != DENSE:
+            raise NotImplementedError(
+                f"training the {self.cfg.family} family on a mesh is not "
+                f"ported yet; the dense family is")
+        return self.mod.loss_fn(self.cfg, params, batch, remat=remat,
+                                mesh=mesh)
 
     def prefill(self, params, batch, pad_to: int = 0):
         return self.mod.prefill(self.cfg, params, batch, pad_to=pad_to)
@@ -101,6 +123,23 @@ class Model:
                 (B, self.cfg.enc_seq, self.cfg.d_model),
                 dtype=PT.DTYPES[self.cfg.dtype], device="meta")
         return out
+
+    def input_axes(self, shape: ShapeConfig) -> dict:
+        if shape.kind == TRAIN:
+            out = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        elif shape.kind == PREFILL:
+            out = {"tokens": ("batch", "seq")}
+        else:
+            out = {"tokens": ("batch",)}
+        if self.cfg.family == ENCDEC and shape.kind in (TRAIN, PREFILL):
+            out["frames"] = ("batch", "seq", None)
+        return out
+
+    def input_pspecs(self, shape: ShapeConfig, mesh, overrides=None) -> dict:
+        specs = self.input_specs(shape)
+        axes = self.input_axes(shape)
+        return {k: logical_to_pspec(axes[k], specs[k].shape, mesh, overrides)
+                for k in specs}
 
 
 def get_model(cfg: ModelConfig) -> Model:

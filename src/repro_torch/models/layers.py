@@ -183,6 +183,14 @@ def output_project(cfg: ModelConfig, p: dict, o: torch.Tensor) -> torch.Tensor:
     return o @ p["wo"].to(o.dtype)
 
 
+def residual_axes(cfg: ModelConfig) -> tuple:
+    """Logical axes of the residual stream between layers (train path):
+    with ``seq_shard`` its sequence is split over the model axis
+    (Megatron's sequence parallelism) and gathered at attention and the
+    MLP."""
+    return ("batch", "sp" if cfg.seq_shard else "seq", None)
+
+
 def cast_tree(tree, dtype: torch.dtype):
     """Cast the floating leaves of a parameter dict to `dtype` (a leaf
     already in `dtype` is returned as it is, without a copy)."""

@@ -10,6 +10,11 @@ leaf, seeded from the caller's seed and the same crc32 salt of the
 leaf's path ("layers/attn/wq"). It cannot reproduce JAX's random
 stream and does not try: parity tests carry the reference's arrays
 across (`repro_torch.convert.from_reference_params`).
+
+On a mesh, `param_pspecs` and `param_shardings` give each leaf's
+PartitionSpec and placement from its logical axes; `shard_tree` places
+a tree of full tensors (each process keeps exactly its shard) and
+`gather_tree` is its inverse, for a checkpoint.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.models.sharding import NamedSharding, logical_to_pspec
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32}
@@ -121,3 +127,27 @@ def abstract_params(spec_tree):
 
 def param_count_tree(spec_tree) -> int:
     return sum(math.prod(s.shape) for _, s in flatten(spec_tree))
+
+
+def param_pspecs(spec_tree, mesh, overrides=None):
+    return tree_map(lambda s: logical_to_pspec(s.axes, s.shape, mesh,
+                                               overrides), spec_tree)
+
+
+def param_shardings(spec_tree, mesh, overrides=None):
+    return tree_map(lambda s: NamedSharding(
+        mesh, logical_to_pspec(s.axes, s.shape, mesh, overrides)), spec_tree)
+
+
+def shard_tree(tree, shardings):
+    """Each leaf's local shard under the matching `NamedSharding` (a
+    copy on the mesh's device): the full tree placed onto the mesh."""
+    sh = dict(flatten(shardings))
+    return unflatten(tree, {p: sh[p].shard(t) for p, t in flatten(tree)})
+
+
+def gather_tree(tree, shardings):
+    """The full tensors of a tree of local shards (collective over the
+    mesh): `shard_tree`'s inverse."""
+    sh = dict(flatten(shardings))
+    return unflatten(tree, {p: sh[p].gather(t) for p, t in flatten(tree)})

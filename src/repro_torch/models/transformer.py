@@ -31,9 +31,31 @@ indexing ``t[i]`` would. `chunked_ce_loss` recomputes each 512-token
 block's logits in the backward (`torch.utils.checkpoint`, as the
 reference's ``jax.checkpoint``), so no (B, S, vocab) logits stay
 resident.
+
+On a mesh (`loss_fn(..., mesh=)`, dense family) each process holds its
+shard of every parameter (`Model.shardings`) and of the batch, and runs
+the reference's GSPMD layouts by hand (`repro_torch.models.sharding`),
+at the reference's `constrain` points:
+
+- weights are gathered over the data axis where they are used (FSDP;
+  their gradients reduce-scattered back) and stay split over the model
+  axis where the layer runs tensor-parallel: attention over the local
+  heads when the model axis divides both head counts (else every head,
+  the weights gathered), the MLP over the local d_ff, the logits and
+  the cross-entropy over the local vocabulary (Megatron's vocabulary-
+  parallel embedding and loss);
+- with ``seq_shard`` the residual stream between layers is split over
+  the model axis along the sequence, gathered before attention and the
+  MLP and reduce-scattered after them;
+- attention runs on the local batch rows and heads, through the same
+  `L.attention` (the flash kernel on the card).
+
+The loss a process returns is its share: the sum over the processes
+that hold distinct batch rows is the global mean loss.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -43,7 +65,10 @@ from repro_torch.config import MOE, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE_MOD
 from repro_torch.models.cache import kv_cache_specs
-from repro_torch.models.params import DTYPES, ParamSpec, stack_specs, tree_map
+from repro_torch.models.params import (DTYPES, ParamSpec, flatten,
+                                      param_pspecs, stack_specs, tree_map)
+from repro_torch.models.sharding import (all_reduce, constrain,
+                                         redistribute, spec_axes)
 
 
 # ---------------------------------------------------------------------------
@@ -228,14 +253,198 @@ def chunked_ce_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
-            remat: str = "none") -> tuple:
+            remat: str = "none", mesh=None) -> tuple:
     """(total loss, {"ce_loss", "lb_loss"}): the chunked cross-entropy plus
-    0.01 x the MoE load-balancing loss (0 for a dense model)."""
+    0.01 x the MoE load-balancing loss (0 for a dense model). On a mesh
+    (dense family) this process's share of the loss."""
+    if mesh is not None:
+        return _mesh_loss(cfg, params, batch, remat, mesh)
     x, lb_loss = forward(cfg, params, batch["tokens"], remat=remat)
     loss = chunked_ce_loss(cfg, params, x, batch["labels"])
     aux_coef = 0.01 if cfg.family == MOE else 0.0
     total = loss + aux_coef * lb_loss
     return total, {"ce_loss": loss, "lb_loss": lb_loss}
+
+
+# ---------------------------------------------------------------------------
+# Train forward + loss on a mesh (dense family)
+# ---------------------------------------------------------------------------
+
+_FULL = ("batch", "seq", None)      # a layer's input, its sequence whole
+
+
+class _Layout:
+    """The dense model's layouts on a mesh for a global (B, S) batch, from
+    the reference's `constrain` points: the residual stream's logical
+    axes (`res`, with `sp` the axes that split its sequence) and the mesh
+    axes that split the heads (q and k, ("batch", "seq", "tp", None)),
+    d_ff and the vocabulary (("batch", "seq", "tp")) where the layer runs
+    tensor-parallel, each empty where the rules drop them."""
+
+    def __init__(self, cfg: ModelConfig, mesh, B: int, S: int):
+        d = cfg.d_model
+        tp = lambda n: spec_axes(mesh.pspec(  # noqa: E731
+            ("batch", "seq", "tp"), (B, S, n))[2])
+        q = spec_axes(mesh.pspec(("batch", "seq", "tp", None),
+                                 (B, S, cfg.n_heads, cfg.head_dim))[2])
+        k = spec_axes(mesh.pspec(("batch", "seq", "tp", None),
+                                 (B, S, cfg.n_kv_heads, cfg.head_dim))[2])
+        self.mesh, self.shape = mesh, (B, S, d)
+        self.res = L.residual_axes(cfg)
+        self.sp = spec_axes(mesh.pspec(self.res, self.shape)[1])
+        self.heads = q if q == k else ()
+        self.ff = tp(cfg.d_ff)
+        self.vocab = tp(cfg.vocab_size)
+        self.n_heads = cfg.n_heads // self.shards(self.heads)
+        self.n_kv_heads = cfg.n_kv_heads // self.shards(self.heads)
+
+    def shards(self, axes) -> int:
+        n = 1
+        for a in axes:
+            n *= self.mesh.size(a)
+        return n
+
+    def to(self, x, logical, src, partial=(), grad_partial=()):
+        """`constrain` of a (B, S, d) tensor from layout `src`."""
+        return constrain(x, logical, self.mesh, src=src, shape=self.shape,
+                         partial=partial, grad_partial=grad_partial)
+
+    def weight(self, t, spec, keep=(), partial=(), dtype=None):
+        """A weight as the layer uses it: gathered over every axis of its
+        storage spec but `keep`, cast to `dtype`; its gradient summed
+        over the axes whose processes hold distinct data (the batch
+        axes and `partial`)."""
+        dst = tuple(tuple(a for a in spec_axes(e) if a in keep) or None
+                    for e in spec)
+        dst = tuple(e[0] if e is not None and len(e) == 1 else e
+                    for e in dst)
+        return redistribute(t, spec, dst, self.mesh,
+                            grad_partial=self.mesh.batch + tuple(partial),
+                            dtype=dtype)
+
+
+def _mesh_layer(cfg: ModelConfig, lay: _Layout, specs: dict, x, lp,
+                positions):
+    """One dense layer on local shards; x in the residual layout."""
+    dtype = DTYPES[cfg.dtype] if cfg.cast_weights else None
+    w = lambda path, keep=(), partial=(): lay.weight(  # noqa: E731
+        lp[path], specs[path], keep, partial, dtype)
+    local = dataclasses.replace(cfg, n_heads=lay.n_heads,
+                                n_kv_heads=lay.n_kv_heads)
+    h = L.apply_norm(x, {"scale": w("ln1/scale", partial=lay.sp)},
+                     cfg.norm_eps)
+    h = lay.to(h, _FULL, lay.res, grad_partial=lay.heads)
+    attn = {k: w(f"attn/{k}", keep=lay.heads) for k in ("wq", "wk", "wv",
+                                                         "wo")}
+    if cfg.qk_norm:
+        for k in ("qnorm", "knorm"):
+            attn[k] = w(f"attn/{k}", partial=lay.heads)
+    q, k, v = L.qkv_project(local, attn, h, positions)
+    o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    y = L.output_project(local, attn, o)
+    x = x + lay.to(y, lay.res, _FULL, partial=lay.heads)
+    h = L.apply_norm(x, {"scale": w("ln2/scale", partial=lay.sp)},
+                     cfg.norm_eps)
+    h = lay.to(h, _FULL, lay.res, grad_partial=lay.ff)
+    mlp = {k: w(f"mlp/{k}", keep=lay.ff) for k in L.mlp_specs(cfg)}
+    y = L.mlp(h, mlp, cfg.mlp_variant, DTYPES[cfg.dtype])
+    return x + lay.to(y, lay.res, _FULL, partial=lay.ff)
+
+
+def _embed_mesh(cfg: ModelConfig, lay: _Layout, table, tokens):
+    """The embedding lookup in the residual layout; with a vocabulary
+    split over the model axis, each process looks up its rows and the
+    rows are summed (Megatron's vocabulary-parallel embedding)."""
+    dtype = DTYPES[cfg.dtype]
+    tok = tokens.long()
+    if not lay.vocab:
+        x = table[tok].to(dtype)
+        return lay.to(x, lay.res, _FULL)
+    n = table.shape[0]
+    idx = tok - lay.mesh.index(lay.vocab[0]) * n
+    mine = (idx >= 0) & (idx < n)
+    x = torch.where(mine[..., None], table[idx.clamp(0, n - 1)],
+                    0.0).to(dtype)
+    return lay.to(x, lay.res, _FULL, partial=lay.vocab)
+
+
+def _ce_block_mesh(cfg: ModelConfig, lay: _Layout, head: dict, xs, ls):
+    """`_ce_block` with the logits split over the vocabulary axis: the
+    log-sum-exp and the label's logit summed over it."""
+    if not lay.vocab:
+        return _ce_block(cfg, head, xs, ls)
+    m, axes = lay.mesh, lay.vocab
+    logits = unembed(cfg, head, xs).float()
+    n = logits.shape[-1]
+    mx = logits.detach().amax(-1)
+    for a in axes:
+        mx = all_reduce(mx, m, a, torch.distributed.ReduceOp.MAX)
+    total = redistribute(torch.exp(logits - mx[..., None]).sum(-1), (), (),
+                         m, partial=axes)
+    lse = mx + torch.log(total)
+    idx = ls.long() - m.index(axes[0]) * n
+    mine = (idx >= 0) & (idx < n)
+    ll = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
+    ll = redistribute(torch.where(mine, ll, 0.0), (), (), m, partial=axes)
+    valid = (ls >= 0).float()
+    return ((lse - ll) * valid).sum(), valid.sum()
+
+
+def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
+               mesh) -> tuple:
+    """`loss_fn` on local shards (`mesh.batch`: the axes that split the
+    batch rows); returns this process's share of the loss and the global
+    ce_loss as a metric."""
+    if cfg.family != "dense":
+        raise NotImplementedError("only the dense family trains on a mesh")
+    tokens, labels = batch["tokens"], batch["labels"]
+    nb = 1
+    for a in mesh.batch:
+        nb *= mesh.size(a)
+    B_local, S = tokens.shape
+    lay = _Layout(cfg, mesh, B_local * nb, S)
+    pspecs = param_pspecs(specs(cfg), mesh)
+    lspecs = {p: s[1:] for p, s in flatten(pspecs["layers"])}
+    embed = lay.weight(params["embed"], pspecs["embed"], keep=lay.vocab)
+    x = _embed_mesh(cfg, lay, embed, tokens)
+    positions = torch.arange(S, device=x.device)
+
+    def body(x, lp):
+        return _mesh_layer(cfg, lay, lspecs, x, dict(flatten(lp)), positions)
+
+    step = maybe_remat(body, remat)
+    for lp in unbind_layers(params["layers"], cfg.n_layers):
+        x = step(x, lp)
+    fn = lay.weight(params["final_norm"]["scale"],
+                    pspecs["final_norm"]["scale"], partial=lay.sp)
+    x = L.apply_norm(x, {"scale": fn}, cfg.norm_eps)
+    x = lay.to(x, _FULL, lay.res, grad_partial=lay.vocab)
+    head = {"embed": embed}
+    if not cfg.tie_embeddings:
+        head["unembed"] = lay.weight(params["unembed"], pspecs["unembed"],
+                                     keep=lay.vocab)
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.float32, device=x.device)
+    block = min(512, S)
+    if S % block:
+        pad = block - S % block
+        x = torch.cat([x, x.new_zeros((x.shape[0], pad, x.shape[2]))], dim=1)
+        labels = torch.cat([labels, labels.new_full((labels.shape[0], pad),
+                                                    -1)], dim=1)
+    for i in range(x.shape[1] // block):
+        cols = slice(i * block, (i + 1) * block)
+        blk_nll, blk_n = checkpoint(functools.partial(_ce_block_mesh, cfg,
+                                                      lay), head,
+                                    x[:, cols], labels[:, cols],
+                                    use_reentrant=False)
+        nll, count = nll + blk_nll, count + blk_n
+    for a in mesh.batch:
+        count = all_reduce(count, mesh, a)
+    share = nll / torch.clamp(count, min=1.0)
+    ce = share.detach()
+    for a in mesh.batch:
+        ce = all_reduce(ce, mesh, a)
+    return share, {"ce_loss": ce, "lb_loss": torch.zeros_like(ce)}
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,15 @@ other's checkpoints: one ``state.npz`` keyed by leaf path
 stored as their raw uint16 bits (``np.savez`` has no bfloat16), and a
 ``manifest.json`` (step, each key's shape and stored dtype, total bytes,
 extra). Writes are atomic (tmp + rename). `load` puts every leaf on the
-target device: the single-card form of the reference's reshard on
-restore. `CheckpointManager` keeps a bounded history, a latest pointer
-for crash recovery, and writes on a background thread after a
-synchronous host snapshot.
+target device or, given ``shardings`` (a tree of `NamedSharding`s of
+the *target* mesh), each process's shard of it on the mesh: restoring
+onto another mesh is the reshard, bit for bit. `save` of a state held
+as shards on a mesh (``shardings`` its placement) gathers the full
+arrays once, a collective over the mesh, and one process (the mesh's
+first) writes them; the caller synchronises the processes before any
+reads the checkpoint. `CheckpointManager` keeps a bounded history, a
+latest pointer for crash recovery, and writes on a background thread
+after a synchronous host snapshot.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models.params import flatten, tree_map, unflatten
+from repro_torch.models.params import flatten, gather_tree, unflatten
 
 _NP_DTYPES = {torch.float32: np.float32, torch.int32: np.int32,
               torch.int64: np.int64, torch.float64: np.float64}
@@ -42,14 +47,38 @@ def _to_host(leaf) -> np.ndarray:
     return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
 
 
+def _writes(shardings) -> bool:
+    """Whether this process writes a checkpoint of a state placed by
+    `shardings` (None: one device, it does): the mesh's first does."""
+    if shardings is None:
+        return True
+    mesh = flatten(shardings)[0][1].mesh
+    return all(i == 0 for i in mesh.coords.values())
+
+
+def _host_tree(state: Any, shardings=None) -> dict:
+    """{path: host array} of `state`; on a mesh gathered from its shards
+    (a collective) and kept by the writer only (empty elsewhere)."""
+    if shardings is not None:
+        state = gather_tree(state, shardings)
+        if not _writes(shardings):
+            return {}
+    return {k: _to_host(v) for k, v in flatten(state)}
+
+
 def save(path: str, state: Any, *, step: int = 0,
-         extra: Optional[dict] = None) -> dict:
+         extra: Optional[dict] = None, shardings=None) -> dict:
     """Write `state` (nested dicts of tensors or arrays) to the directory
-    `path`. Returns timing info and the bytes written."""
+    `path`; on a mesh (``shardings``) every process calls it and the
+    mesh's first writes. Returns timing info and the bytes written (0 on
+    a process that does not write)."""
     t0 = time.perf_counter()
-    os.makedirs(path, exist_ok=True)
-    host = {k: _to_host(v) for k, v in flatten(state)}
+    host = _host_tree(state, shardings)
     t_gather = time.perf_counter() - t0
+    if not _writes(shardings):
+        return {"gather_s": t_gather, "write_s": 0.0, "total_s": t_gather,
+                "bytes": 0}
+    os.makedirs(path, exist_ok=True)
     tmp = os.path.join(path, ".tmp.npz")
     np.savez(tmp, **host)
     os.replace(tmp, os.path.join(path, "state.npz"))
@@ -67,12 +96,15 @@ def save(path: str, state: Any, *, step: int = 0,
             "total_s": t_total, "bytes": manifest["bytes"]}
 
 
-def load(path: str, abstract_state: Any, device="cuda") -> Any:
+def load(path: str, abstract_state: Any, device="cuda",
+         shardings=None) -> Any:
     """Restore a state shaped as `abstract_state` (nested dicts whose
     leaves have ``.shape`` and a torch ``.dtype``, e.g. meta tensors from
-    `loop.abstract_state`) onto `device`. Raises on a missing leaf or a
-    shape that differs."""
-    dev = resolve_device(device)
+    `loop.abstract_state`) onto `device`, or with `shardings` (the target
+    mesh's placement of the same tree) each process's shards onto the
+    mesh. Raises on a missing leaf or a shape that differs."""
+    dev = resolve_device(device) if shardings is None else None
+    sh = dict(flatten(shardings)) if shardings is not None else {}
     with np.load(os.path.join(path, "state.npz")) as z:
         data = {k: z[k] for k in z.files}
     leaves = {}
@@ -90,7 +122,7 @@ def load(path: str, abstract_state: Any, device="cuda") -> Any:
             t = torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
         else:
             t = torch.from_numpy(arr.astype(_NP_DTYPES[leaf.dtype]))
-        leaves[key] = t.to(dev)
+        leaves[key] = sh[key].shard(t) if sh else t.to(dev)
     return unflatten(abstract_state, leaves)
 
 
@@ -141,16 +173,22 @@ class CheckpointManager:
         self.wait()
         return self._last_info
 
-    def save(self, step: int, state: Any,
-             extra: Optional[dict] = None) -> Optional[dict]:
+    def save(self, step: int, state: Any, extra: Optional[dict] = None,
+             shardings=None) -> Optional[dict]:
         """Write a checkpoint; returns its info dict for synchronous saves
-        (async saves return None: use `last_info()`)."""
+        (async saves return None: use `last_info()`). On a mesh
+        (``shardings``) every process calls it; the state is gathered
+        synchronously and the mesh's first process writes."""
         self.wait()
         # snapshot to the host synchronously (cheap vs the write), write async
-        host = tree_map(_to_host, state)
+        host = _host_tree(state, shardings)      # {path: array}, flat
+        writes = _writes(shardings)
 
         def work():
             try:
+                if not writes:
+                    self._last_info = {"bytes": 0}
+                    return
                 self._last_info = save(self.step_dir(step), host, step=step,
                                        extra=extra)
                 self._gc()
@@ -166,12 +204,15 @@ class CheckpointManager:
         return self._last_info
 
     def restore(self, abstract_state: Any, *, step: Optional[int] = None,
-                device="cuda") -> tuple:
+                device="cuda", shardings=None) -> tuple:
+        """(state, step) of checkpoint `step` (default the latest), onto
+        `device` or, with `shardings`, onto the target mesh."""
         self.wait()
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
-        return load(self.step_dir(step), abstract_state, device), step
+        return load(self.step_dir(step), abstract_state, device,
+                    shardings), step
 
     def _gc(self):
         steps = self.all_steps()

@@ -11,6 +11,12 @@ jits its train step with the state donated: AdamW writes the new values
 into the parameters, the moments and the gradients, in slices of at
 most `SLICE` entries, so a model whose state fills most of the card
 still takes its step; SGD returns new trees.
+
+On a mesh the trees hold local shards and ``shardings`` (a tree of
+`NamedSharding`s, the parameters') is given: every statistic taken over
+a whole leaf or the whole tree, the global norm and so the clip scale,
+is then the whole tree's (`sharding.whole_leaf_stats`), equal on every
+process, so replicas of a leaf take the same step.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from repro_torch.config import OptimizerConfig
 from repro_torch.models.params import flatten, tree_map, unflatten
+from repro_torch.models.sharding import whole_leaf_stats
 
 F32 = torch.float32
 SLICE = 1 << 24         # entries an AdamW update works on at a time
@@ -64,9 +71,13 @@ def adamw_init(params: dict) -> dict:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum over leaves (in flatten order) of sum(x²), float32."""
+def global_norm(tree, shardings=None) -> torch.Tensor:
+    """sqrt of the sum over leaves (in flatten order) of sum(x²), float32;
+    on a mesh, of the whole leaves."""
     leaves = [torch.sum(torch.square(x.to(F32))) for _, x in flatten(tree)]
+    if shardings is not None:
+        leaves = whole_leaf_stats(leaves, [s for _, s in flatten(shardings)],
+                                  "sum")
     total = leaves[0]
     for x in leaves[1:]:
         total = total + x
@@ -79,8 +90,9 @@ def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
                                  torch.clamp(norm, min=1e-9)), max=1.0)
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: dict, max_norm: float,
+                        shardings=None) -> tuple:
+    norm = global_norm(grads, shardings)
     scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: g.to(F32) * scale, grads), norm
 
@@ -115,12 +127,13 @@ def _adamw_(cfg: OptimizerConfig, lr, bc1, bc2, p, g, m, v):
     p.sub_(delta.mul_(lr))
 
 
-def adamw_update(cfg: OptimizerConfig, grads, opt_state, params, step):
+def adamw_update(cfg: OptimizerConfig, grads, opt_state, params, step,
+                 shardings=None):
     """Returns (new_params, new_opt_state, metrics). All f32 master math.
     The new values are written into `params`, ``opt_state``'s moments and
     `grads` (all spent), which are returned."""
     grads = tree_map(lambda g: g.to(F32), grads)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     if cfg.grad_clip > 0:
         scale = _clip_scale(gnorm, cfg.grad_clip)
         for _, g in flatten(grads):
@@ -142,12 +155,13 @@ def adamw_update(cfg: OptimizerConfig, grads, opt_state, params, step):
 # SGD (baseline optimizer)
 # ---------------------------------------------------------------------------
 
-def sgd_update(cfg: OptimizerConfig, grads, opt_state, params, step):
+def sgd_update(cfg: OptimizerConfig, grads, opt_state, params, step,
+               shardings=None):
     lr = lr_at(cfg, step)
     if cfg.grad_clip > 0:
-        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+        grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, shardings)
     else:
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, shardings)
     mom = unflatten(params, _zip(lambda p, m, g: 0.9 * m + g.to(F32), params,
                                  opt_state["m"], grads))
     new_p = unflatten(params, _zip(

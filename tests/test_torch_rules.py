@@ -34,7 +34,8 @@ def test_port_files_exist():
     assert "src/repro_torch/train/loop.py" in names
     assert "src/repro_torch/core/carbon_aware_trainer.py" in names
     for name in ("kernels/cost", "launch/dryrun", "launch/dryrun_lib",
-                 "launch/roofline", "examples/quickstart",
+                 "launch/roofline", "launch/mesh", "launch/collectives",
+                 "models/sharding", "examples/quickstart",
                  "examples/simulate_regions", "examples/elasticity_demo",
                  "examples/traffic_demo", "examples/carbon_train"):
         assert f"src/repro_torch/{name}.py" in names
