@@ -164,18 +164,37 @@ raising on failure so the run exits non-zero:
      between two slices (both this card) and a suspend/resume; every restore
      bit-equal to its checkpoint, every loss equal to an uninterrupted
      job's, average C(t) within 1.1 x the target;
-  10b. mesh_train: dense training sharded over the cards, W =
+  10b. mesh_train: training sharded over the cards, W =
      torch.cuda.device_count() processes (spawned, one card each, NCCL,
-     TF32 off, one time limit for all): SmolLM-135M whole in float32,
-     1,024 x 8 tokens a step, 2 steps, on the mesh (data W, model 1) and,
-     for an even W, (data W/2, model 2), where the model axis drops on
-     the 9 heads and stays on d_ff and the vocabulary; every step held
-     against the same step unsharded on card 0 at phase 8's bars
-     (`_hold_train_step`), the first step's collectives counted (wire
-     bytes per device by kind, the roofline's collective seconds at
-     NVLink's 450 GB/s a direction); then an ElasticJob on all W cards
-     migrates to the first ceil(W/2) and back, its state bit-equal
-     across each reshard (cuda:0 to cuda:0 with one card);
+     TF32 off, one time limit for all): SmolLM-135M whole and
+     OLMoE-1B-7B at its published widths (d 2,048, 64 experts, top-8,
+     16:16 heads of 128, vocab 50,304) and 2 of its 16 layers, both in
+     float32, 1,024 x 8 tokens a step, 2 steps, on the mesh (data W,
+     model 1) and, for an even W, (data W/2, model 2), where SmolLM's
+     model axis drops on the 9 heads and stays on d_ff and the
+     vocabulary, and OLMoE's splits the heads, the vocabulary and the
+     experts (expert-parallel, capacity per data shard); every step
+     held against the same step unsharded on card 0 at phase 8's bars
+     (`_hold_train_step`), OLMoE's in microbatches of one data shard's
+     rows; the first step's collectives counted (wire bytes per device
+     by kind, the roofline's collective seconds at NVLink's 450 GB/s a
+     direction); then an ElasticJob of SmolLM on all W cards migrates
+     to the first ceil(W/2) and back, its state bit-equal across each
+     reshard (cuda:0 to cuda:0 with one card);
+  10c. mesh_serve: serving sharded over the cards, W processes as in
+     10b, on the meshes (W, 1) and, for W >= 2, (1, W) (expert-parallel
+     over every card); phi4-mini-3.8b and olmoe-1b-7b at their published
+     widths and 2 layers in float32: prefill and 8 decode steps on each
+     mesh (the decode cache split over its sequence where the model axis
+     divides it) against the unsharded model on card 0 run on each data
+     shard's prompts alone, every step's logits within 1e-3 and the
+     greedy tokens equal; then both at full width in bf16,
+     `ServeEngine(mesh=)` generating 32 greedy tokens after 4 prompts of
+     2,048: prefill and decode tokens per second, peak GB per card, the
+     wire bytes per device by kind of one prefill and one decode step,
+     the flash launches by route and OLMoE's first-layer
+     router_dropped. With one card both phases run the mesh path on a
+     (1, 1) mesh and issue no collective;
   11. the single-card dry run (`python -m repro_torch.launch.dryrun
      --all`): the 40 cells, 32 run and 8 skipped with the reference's
      reasons; each cell's memory from its abstract trees with
@@ -195,7 +214,8 @@ raising on failure so the run exits non-zero:
      against CPU, summaries equal.
 
 Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7,
-7b, 9 (each model's timed steps), 10, 10b (each mesh's steps), 11 and 12
+7b, 9 (each model's timed steps), 10, 10b (each mesh's steps), 10c (each
+mesh's generate), 11 and 12
 (the defaults' runs)
 are the main paths (11 and 12 are counted, not pinned): every
 kernel's launch counter is set to 0
@@ -210,8 +230,9 @@ RecurrentGemma 72 RG-LRU launches (6 recurrent blocks x 4
 microbatches: forward, the remat's recompute and the backward) and 16
 flash launches with lse (2 x 4, twice), of Whisper 72 flash launches
 with lse (6 encoder + 12 decoder attentions x 4 microbatches); 30 flash
-launches with lse a step in 10, and a step on each card in 10b, on the
-float32 cuda_core route) and no others, every flash launch on
+launches with lse a step in 10, and a step of SmolLM on each card in
+10b (2 for OLMoE's), on the float32 cuda_core route; in 10c one a layer
+on each card per generate, on the wgmma route) and no others, every flash launch on
 the wgmma route (with lse in 9 and 10), every SSD launch on the
 mma_sync route and every RG-LRU launch on the ring route.
 
@@ -220,6 +241,7 @@ line, the roofline table, the dry-run and examples line, the
 ``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``. The full record
 goes to ``chiprun_out/chip_smoke.json``.
 """
+import dataclasses
 import gc
 import json
 import subprocess
@@ -2075,17 +2097,25 @@ def train_full_width(dev, arch, n_layers, seq, batch, micro, remat, steps):
 
 
 # ---------------------------------------------------------------------------
-# Training sharded over a mesh of the cards
+# Training and serving sharded over a mesh of the cards
 # ---------------------------------------------------------------------------
 
 MESH_SEQ, MESH_BATCH, MESH_STEPS = 1024, 8, 2
 MESH_TIMEOUT_S = 600
+# arch, depth (None: the published one): SmolLM-135M whole; OLMoE-1B-7B at
+# its published widths and 2 of its 16 layers, so that its unsharded step
+# (f32 masters, moments and 8 x 1,024 tokens of activations) fits card 0
+MESH_TRAIN = [(TRAIN_ARCH, None), ("olmoe-1b-7b", 2)]
 
 
-def _mesh_rank(rank, world, store, out):
-    """One process of `mesh_train_phase` (spawned): card `rank`, NCCL,
-    TF32 off; rank 0 writes the phase's record to `out`."""
+def _mesh_rank(rank, world, store, out, work):
+    """One process of a mesh phase (spawned): card `rank`, NCCL, TF32
+    off; rank 0 writes `work(rank, world)`'s record to `out`. A rank
+    that raises exits at once, without leaving the process group (the
+    others may be waiting in a collective), so the phase fails fast."""
     import datetime
+    import os
+    import traceback
 
     import torch.distributed as dist
     sys.path.insert(0, str(ROOT / "src"))
@@ -2097,11 +2127,41 @@ def _mesh_rank(rank, world, store, out):
                             timeout=datetime.timedelta(seconds=300),
                             device_id=torch.device("cuda", rank))
     try:
-        record = _mesh_rank_work(rank, world)
+        record = work(rank, world)
         if rank == 0:
             Path(out).write_text(json.dumps(record))
-    finally:
-        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)
+    dist.destroy_process_group()
+
+
+def _spawn_mesh(name, work):
+    """`work` on W = the card count spawned processes, one card each, under
+    one time limit; every process killed if one fails or the limit
+    passes. Returns rank 0's record."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory(prefix=f"{name}_") as d:
+        out = Path(d) / "record.json"
+        ctx = mp.start_processes(_mesh_rank, args=(
+            world, str(Path(d) / "store"), str(out), work), nprocs=world,
+            join=False, start_method="spawn")
+        deadline = time.monotonic() + MESH_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"{name} outlived {MESH_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        return json.loads(out.read_text())
 
 
 def _gathered_cpu(state, shardings, keep):
@@ -2113,52 +2173,89 @@ def _gathered_cpu(state, shardings, keep):
             else {})
 
 
-def _mesh_rank_work(rank, world):
-    """SmolLM-135M (f32, 30 layers) at sequence 1,024, global batch 8:
-    rank 0 takes MESH_STEPS steps unsharded on its card; then each mesh
-    takes the same steps from the same seed, held against them after
-    every step (`_hold_train_step`), the first step's collectives
-    counted and every flash launch counted; then an ElasticJob on all
-    cards migrates to the first ceil(W/2) and back, its state gathered
-    before and after each migration and held bit-equal."""
-    import tempfile
+def _mesh_shapes(world):
+    """The training meshes: (W, 1) and, for an even W, (W/2, 2)."""
+    return [(world, 1)] + ([(world // 2, 2)] if world % 2 == 0 else [])
 
+
+def _unsharded_steps(model, tcfg, batches, dev):
+    """MESH_STEPS train steps unsharded on `dev` from the seeded state:
+    (params before, state after, metrics) of each, on the CPU."""
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.models.params import flatten
+    from repro_torch.train import loop as TL
+    state = TL.init_state(model, tcfg.optimizer, SEED, dev)
+    step = TL.make_train_step(model, tcfg)
+    before = {p: t.to("cpu", copy=True) for p, t in flatten(state["params"])}
+    want = []
+    for b in batches:
+        state, m = step(state, to_device(b, dev))
+        after = {p: t.to("cpu", copy=True) for p, t in flatten(state)}
+        want.append((before, after, {k: float(v) for k, v in m.items()}))
+        before = {p[len("params/"):]: t for p, t in after.items()
+                  if p.startswith("params/")}
+    del state, step
+    _free_device_memory()
+    return want
+
+
+def _state_from_rank0(flat, model, opt, mesh, rank):
+    """The train state {path: CPU tensor} that rank 0 holds (`flat`; None
+    elsewhere), placed onto `mesh`: broadcast from card 0 leaf by leaf,
+    each rank keeping its shard."""
+    import torch.distributed as dist
+
+    from repro_torch.models.params import flatten, unflatten
+    from repro_torch.train import loop as TL
+    abstract = TL.abstract_state(model, opt)
+    sh = dict(flatten(TL.state_shardings(model, opt, mesh)))
+    out = {}
+    for path, meta in flatten(abstract):
+        t = (flat[path].to(mesh.device) if rank == 0 else torch.empty(
+            meta.shape, dtype=meta.dtype, device=mesh.device))
+        dist.broadcast(t, src=0)
+        out[path] = sh[path].shard(t)
+        del t
+    return unflatten(abstract, out)
+
+
+def _mesh_train_model(rank, world, arch, n_layers):
+    """`arch` (f32) at sequence 1,024, global batch 8: each mesh takes
+    MESH_STEPS steps from the seed, held after every step against the
+    same steps unsharded on card 0 (`_hold_train_step`) whose
+    microbatches are one data shard's rows each for an MoE (its capacity
+    is per data shard; a dense model's unsharded step takes the batch
+    whole); the first step's collectives and every flash launch
+    counted. An MoE's later steps each start from the unsharded state
+    before them: its discrete routing turns the first step's rounding
+    (Adam's sign flips on gradients within rounding of 0) into other
+    expert assignments and capacity drops at the next step, so only a
+    step from one state measures the sharded step itself."""
     import torch.distributed as dist
 
     from repro_torch.config import MeshConfig, OptimizerConfig, TrainConfig
-    from repro_torch.core.elastic import ElasticJob
-    from repro_torch.data.pipeline import to_device
     from repro_torch.launch.collectives import COUNTER
     from repro_torch.launch.mesh import describe, make_mesh
     from repro_torch.launch.roofline import collective_seconds
-    from repro_torch.models.params import flatten
     from repro_torch.train import loop as TL
     dev = torch.device("cuda", rank)
-    model = _family_model(TRAIN_ARCH, None, "float32")
+    model = _family_model(arch, n_layers, "float32")
+    moe = model.cfg.family == "moe"
     opt = OptimizerConfig(warmup_steps=0)
     tcfg = TrainConfig(seq_len=MESH_SEQ, global_batch=MESH_BATCH,
                        optimizer=opt)
     data = _family_batches(model.cfg, MESH_SEQ, MESH_BATCH, SEED,
                            torch.float32)
     batches = [next(data) for _ in range(MESH_STEPS)]
-    want = []            # (params before, state after, metrics) per step
-    if rank == 0:
-        state = TL.init_state(model, opt, SEED, dev)
-        step = TL.make_train_step(model, tcfg)
-        before = {p: t.to("cpu", copy=True)
-                  for p, t in flatten(state["params"])}
-        for b in batches:
-            state, m = step(state, to_device(b, dev))
-            after = {p: t.to("cpu", copy=True) for p, t in flatten(state)}
-            want.append((before, after, {k: float(v) for k, v in m.items()}))
-            before = {p[len("params/"):]: t for p, t in after.items()
-                      if p.startswith("params/")}
-        del state, step
-        _free_device_memory()
-    dist.barrier()
-    shapes = [(world, 1)] + ([(world // 2, 2)] if world % 2 == 0 else [])
+    wants = {}           # unsharded microbatch -> its steps, on rank 0
     meshes = []
-    for data_n, model_n in shapes:
+    for data_n, model_n in _mesh_shapes(world):
+        micro = MESH_BATCH // data_n if moe else MESH_BATCH
+        if rank == 0 and micro not in wants:
+            wants[micro] = _unsharded_steps(model, dataclasses.replace(
+                tcfg, microbatch=micro), batches, dev)
+        dist.barrier()
+        want = wants.get(micro)
         mesh = make_mesh(MeshConfig(data=data_n, model=model_n), "cuda")
         sh = TL.state_shardings(model, opt, mesh)
         state = TL.init_state(model, opt, SEED, mesh=mesh)
@@ -2167,6 +2264,10 @@ def _mesh_rank_work(rank, world):
         torch.cuda.synchronize()
         _zero_counts()
         for i, b in enumerate(batches):
+            if i and moe:
+                del state
+                state = _state_from_rank0(want[i - 1][1] if rank == 0
+                                          else None, model, opt, mesh, rank)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if i == 0:
@@ -2184,9 +2285,9 @@ def _mesh_rank_work(rank, world):
             got = _gathered_cpu(state, sh, rank == 0)
             if rank == 0:
                 held.append(_hold_train_step(
-                    f"mesh_train {data_n}x{model_n} step {i + 1} vs "
-                    f"unsharded", got, metrics, want[i][1], want[i][2],
-                    want[i][0], opt.lr))
+                    f"mesh_train {arch} {data_n}x{model_n} step {i + 1} vs "
+                    f"unsharded (microbatches of {micro})", got, metrics,
+                    want[i][1], want[i][2], want[i][0], opt.lr))
             del got
         flash = {r: c for r, c in _read_routes()["flash_attention"].items()
                  if c}
@@ -2199,6 +2300,8 @@ def _mesh_rank_work(rank, world):
         summary = COUNTER.summary()
         meshes.append({
             **describe(mesh), "shape": [data_n, model_n],
+            "unsharded_microbatch": micro,
+            "each_step_from_the_unsharded_state": moe,
             "step_times_s": times, "step_time_s": times[-1],
             "losses": losses, "held": held,
             "flash_launches_per_rank": per_step,
@@ -2211,6 +2314,35 @@ def _mesh_rank_work(rank, world):
                                                mesh.n_devices)})
         del state, step
         _free_device_memory()
+    return {"arch": arch, "n_layers": model.cfg.n_layers,
+            "params": model.param_count(), "dtype": "float32",
+            "seq_len": MESH_SEQ, "global_batch": MESH_BATCH,
+            "steps": MESH_STEPS, "meshes": meshes,
+            "flash_launches": world * sum(m["flash_launches_per_rank"]
+                                          for m in meshes),
+            "unsharded_losses": {str(k): [w[2]["loss"] for w in v]
+                                 for k, v in wants.items()}}
+
+
+def _mesh_train_work(rank, world):
+    """Each of MESH_TRAIN on the meshes (`_mesh_train_model`); then an
+    ElasticJob of SmolLM-135M on all cards migrates to the first
+    ceil(W/2) and back, its state gathered before and after each
+    migration and held bit-equal."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.config import OptimizerConfig, TrainConfig
+    from repro_torch.core.elastic import ElasticJob
+    models = [_mesh_train_model(rank, world, arch, n)
+              for arch, n in MESH_TRAIN]
+    model = _family_model(TRAIN_ARCH, None, "float32")
+    tcfg = TrainConfig(seq_len=MESH_SEQ, global_batch=MESH_BATCH,
+                       optimizer=OptimizerConfig(warmup_steps=0))
+    data = _family_batches(model.cfg, MESH_SEQ, MESH_BATCH, SEED,
+                           torch.float32)
+    batches = [next(data) for _ in range(MESH_STEPS)]
     cards = [torch.device("cuda", r) for r in range(world)]
     half = cards[:(world + 1) // 2]
     migrations, bit_equal = [], []
@@ -2234,60 +2366,260 @@ def _mesh_rank_work(rank, world):
                 bit_equal.append(len(target))
         job.train_step(batches[1])
         dist.barrier()
-    return {"world": world, "arch": TRAIN_ARCH, "dtype": "float32",
-            "seq_len": MESH_SEQ, "global_batch": MESH_BATCH,
-            "steps": MESH_STEPS, "meshes": meshes,
-            "flash_launches": world * sum(m["flash_launches_per_rank"]
-                                          for m in meshes),
+    return {"world": world, "models": models,
+            "flash_launches": sum(m["flash_launches"] for m in models),
             "migrations": migrations, "bit_equal_after_migration_to":
-                bit_equal,
-            "unsharded_losses": [w[2]["loss"] for w in want]}
+                bit_equal}
 
 
 def mesh_train_phase(dev):
-    """Dense training sharded over the cards: W = the card count ranks,
-    one card each, over NCCL (`_mesh_rank_work`), spawned with a time
-    limit; every rank killed if one fails or the limit passes. Prints W,
-    each mesh, its step times, the first step's wire bytes per device by
-    kind with the roofline's collective seconds, the migrations and the
-    flash launches."""
-    import tempfile
-
-    import torch.multiprocessing as mp
-    world = torch.cuda.device_count()
-    with tempfile.TemporaryDirectory(prefix="mesh_train_") as d:
-        out = Path(d) / "record.json"
-        ctx = mp.start_processes(_mesh_rank, args=(
-            world, str(Path(d) / "store"), str(out)), nprocs=world,
-            join=False, start_method="spawn")
-        deadline = time.monotonic() + MESH_TIMEOUT_S
-        try:
-            while not ctx.join(timeout=1.0):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"mesh_train outlived "
-                                       f"{MESH_TIMEOUT_S} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-                p.join(30)
-        record = json.loads(out.read_text())
-    print(f"[mesh_train] W = {world} card(s), {TRAIN_ARCH} f32 at "
-          f"{MESH_BATCH} x {MESH_SEQ} tokens a step", flush=True)
-    for m in record["meshes"]:
-        errs = [{k: h[k] for k in ("rel_err", "mv_err_over_max",
-                                   "params_margin", "updates_off_bar")}
-                for h in m["held"]]
-        print(f"[mesh_train] mesh {m['axes']}: step times "
-              f"{m['step_times_s']} s, wire bytes per device per step by "
-              f"kind {m['wire_bytes_per_device_by_kind']} (total "
-              f"{m['total_wire_bytes_per_device']}, collective_s "
-              f"{m['collective_s']} at NVLink 4's 450 GB/s a direction, "
-              f"a data-sheet figure), vs unsharded (bars 1e-3): {errs}",
-              flush=True)
+    """Training sharded over the cards: W = the card count ranks, one card
+    each, over NCCL (`_mesh_train_work`), spawned with a time limit.
+    Prints W, each model and mesh, its step times, the first step's wire
+    bytes per device by kind with the roofline's collective seconds, the
+    migrations and the flash launches."""
+    record = _spawn_mesh("mesh_train", _mesh_train_work)
+    world = record["world"]
+    for r in record["models"]:
+        print(f"[mesh_train] W = {world} card(s), {r['arch']} "
+              f"({r['n_layers']} layers) f32 at {MESH_BATCH} x {MESH_SEQ} "
+              f"tokens a step", flush=True)
+        for m in r["meshes"]:
+            errs = [{k: h[k] for k in ("rel_err", "mv_err_over_max",
+                                       "params_margin", "updates_off_bar")}
+                    for h in m["held"]]
+            print(f"[mesh_train] {r['arch']} mesh {m['axes']}: step times "
+                  f"{m['step_times_s']} s, wire bytes per device per step "
+                  f"by kind {m['wire_bytes_per_device_by_kind']} (total "
+                  f"{m['total_wire_bytes_per_device']}, collective_s "
+                  f"{m['collective_s']} at NVLink 4's 450 GB/s a "
+                  f"direction, a data-sheet figure), vs unsharded in "
+                  f"microbatches of {m['unsharded_microbatch']} (bars "
+                  f"1e-3): {errs}", flush=True)
+    if world == 1:
+        print("[mesh_train] one card: the (1, 1) mesh runs the mesh path "
+              "and issues no collective", flush=True)
     print(f"[mesh_train] migrations {record['migrations']}, bit-equal "
           f"after each; flash launches {record['flash_launches']}",
           flush=True)
+    return record
+
+
+# the served models on a mesh: f32 at 2 layers against the unsharded
+# engine, then bf16 at full width, 4 prompts of 2,048 tokens, 32 new
+MESH_SERVE = ["phi4-mini-3.8b", "olmoe-1b-7b"]
+MESH_CHECK_PROMPT, MESH_CHECK_STEPS = 128, 8
+
+
+def _serve_meshes(world):
+    """The serving meshes: (W, 1) and, for W >= 2, (1, W): expert-parallel
+    over every card."""
+    return [(world, 1)] + ([(1, world)] if world >= 2 else [])
+
+
+def _mesh_serve_check(rank, world, arch):
+    """Published widths, 2 layers, f32, TF32 off, batch 4: on each mesh the
+    prefill and MESH_CHECK_STEPS decode steps fed card 0's greedy tokens,
+    every step's gathered logits within 1e-3 (abs and rel) of the
+    unsharded model's on card 0, run on each data shard's prompts alone
+    (an MoE's capacity is per data shard), and their greedy tokens
+    equal."""
+    import torch.distributed as dist
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.data.pipeline import shard_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import shard_tree
+    from repro_torch.models.sharding import NamedSharding, logical_to_pspec
+    dev = torch.device("cuda", rank)
+    model = _serving_model(arch, dtype="float32", n_layers=2)
+    cfg = model.cfg
+    B, S = 4, MESH_CHECK_PROMPT
+    pad = S + MESH_CHECK_STEPS
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)))
+    full = model.init(SEED, device=dev)
+    out = []
+    for data_n, model_n in _serve_meshes(world):
+        rows = B // data_n
+        want = None
+        if rank == 0:         # unsharded, one data shard's prompts at a time
+            want = []
+            for d in range(data_n):
+                p = prompts[d * rows:(d + 1) * rows].to(dev)
+                lg, cache = model.prefill(full, {"tokens": p}, pad_to=pad)
+                steps = [lg.cpu()]
+                for _ in range(MESH_CHECK_STEPS):
+                    lg, cache = model.decode(full, cache,
+                                             torch.argmax(lg, -1))
+                    steps.append(lg.cpu())
+                want.append(torch.stack(steps))
+            want = torch.cat(want, dim=1)           # (steps + 1, B, V)
+            del cache
+        box = [None if want is None else torch.argmax(want, -1)]
+        dist.broadcast_object_list(box, src=0)
+        tokens = box[0]                              # card 0's greedy tokens
+        mesh = make_mesh(MeshConfig(data=data_n, model=model_n),
+                         "cuda").for_batch((B, S))
+        params = shard_tree(full, model.shardings(mesh))
+        lsh = NamedSharding(mesh, logical_to_pspec(("batch", "tp"),
+                                                   (B, cfg.vocab_size), mesh))
+        tsh = NamedSharding(mesh, logical_to_pspec(("batch",), (B,), mesh))
+        lg, cache = model.prefill(params, shard_batch({"tokens": prompts},
+                                                      mesh),
+                                  pad_to=pad, mesh=mesh)
+        got = [lsh.gather(lg).cpu()]
+        for i in range(MESH_CHECK_STEPS):
+            lg, cache = model.decode(params, cache,
+                                     tsh.shard(tokens[i].to(dev)), mesh=mesh)
+            got.append(lsh.gather(lg).cpu())
+        del params, cache
+        if rank == 0:
+            got = torch.stack(got)
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, atol=1e-3, rtol=1e-3) or not (
+                    torch.equal(torch.argmax(got, -1), tokens)):
+                raise AssertionError(f"mesh_serve {arch} {data_n}x{model_n}: "
+                                     f"logits differ from the unsharded "
+                                     f"engine's by {err}, or its greedy "
+                                     f"tokens do")
+            out.append({"shape": [data_n, model_n], "max_abs_err": err,
+                        "max_abs_logit": float(want.abs().max()),
+                        "greedy_equal": True})
+    del full
+    _free_device_memory()
+    return {"arch": arch, "n_layers": 2, "dtype": "float32", "batch": B,
+            "prompt_len": S, "decode_steps": MESH_CHECK_STEPS,
+            "meshes": out}
+
+
+def _all_ranks(value):
+    import torch.distributed as dist
+    box = [None] * dist.get_world_size()
+    dist.all_gather_object(box, value)
+    return box
+
+
+def _mesh_serve_full(rank, world, arch):
+    """bf16 at the published widths on each mesh: `ServeEngine(mesh=)`
+    loads seeded weights (each card its shards), a warm-up, then
+    `generate` of SERVE_NEW_TOKENS greedy tokens after 4 prompts of
+    SERVE_PROMPT tokens with every kernel's count zeroed before and read
+    after (one flash launch a layer on each card, on the wgmma route);
+    then one prefill and one decode step with the collectives counted,
+    and an MoE's first-layer router_dropped."""
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.collectives import COUNTER
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import flatten
+    from repro_torch.serve.engine import ServeEngine, throughput_tokens_per_s
+    dev = torch.device("cuda", rank)
+    model = _serving_model(arch)
+    cfg = model.cfg
+    B, S = 4, SERVE_PROMPT
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, S))
+    out = []
+    for data_n, model_n in _serve_meshes(world):
+        mesh = make_mesh(MeshConfig(data=data_n, model=model_n), "cuda")
+        engine = ServeEngine(model, mesh=mesh).load(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)        # serving, not init
+        engine.generate(prompts[:, :128], 2)            # warm-up
+        engine.stats = dict.fromkeys(engine.stats, 0)
+        _zero_counts()
+        res = engine.generate(prompts, SERVE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        launches, routes = _read_counts(), _read_routes()
+        want = {n: (cfg.n_layers if n == "flash_attention" else 0)
+                for n in launches}
+        if launches != want or routes["flash_attention"].get(
+                "wgmma", 0) != cfg.n_layers:
+            raise AssertionError(f"mesh_serve {arch} {data_n}x{model_n} "
+                                 f"rank {rank}: launches {launches} on "
+                                 f"{routes['flash_attention']}, expected "
+                                 f"{cfg.n_layers} flash on wgmma")
+        toks = res["tokens"]
+        if toks.shape != (B, SERVE_NEW_TOKENS) or toks.min() < 0 or (
+                toks.max() >= cfg.vocab_size):
+            raise AssertionError(f"mesh_serve {arch}: tokens of shape "
+                                 f"{toks.shape} in [{toks.min()}, "
+                                 f"{toks.max()}]")
+        peaks = _all_ranks(torch.cuda.max_memory_allocated(dev))
+        params = engine.prepared_params()
+        run_mesh = mesh.for_batch((B, S))
+        batch = engine.prefill_batch(prompts)
+        wire = {}
+        COUNTER.reset()
+        with COUNTER.on():
+            lg, cache = model.prefill(params, batch, pad_to=S + 1,
+                                      mesh=run_mesh)
+        wire["prefill"] = COUNTER.summary()
+        COUNTER.reset()
+        tok = engine._rows(torch.argmax(engine._whole(lg, B), -1), B)
+        with COUNTER.on():
+            model.decode(params, cache, tok, mesh=run_mesh)
+        wire["decode_step"] = COUNTER.summary()
+        COUNTER.reset()
+        del lg, cache
+        rec = {"shape": [data_n, model_n],
+               **throughput_tokens_per_s(res["stats"]),
+               "prefill_s": res["stats"]["prefill_s"],
+               "decode_s": res["stats"]["decode_s"],
+               "peak_gb_per_card": [p / 1e9 for p in peaks],
+               "flash_launches_per_card": launches["flash_attention"],
+               "flash_routes": {r: c for r, c in
+                                routes["flash_attention"].items() if c},
+               "wire_bytes_per_device_by_kind": {
+                   k: {kind: v["wire_bytes"] for kind, v in
+                       w["per_kind"].items()} for k, w in wire.items()},
+               "tokens_head": toks[:, :8].tolist()}
+        if cfg.family == "moe":
+            lay, _, lspecs, _, x, _ = T._serve_setup(
+                cfg, params, batch["tokens"], S, run_mesh)
+            _, aux = T._mesh_layer(cfg, lay, lspecs, x, dict(flatten(
+                T.layer(params["layers"], 0))), torch.arange(S, device=dev))
+            rec["layer0_router_dropped"] = float(aux["router_dropped"])
+        if max(peaks) >= DEVICE_BYTES:
+            raise AssertionError(f"mesh_serve {arch}: peak memory {peaks} B")
+        out.append(rec)
+        del engine, params, batch
+        _free_device_memory()
+    return {"arch": arch, "params": model.param_count(), "dtype": cfg.dtype,
+            "batch": B, "prompt_len": S, "new_tokens": SERVE_NEW_TOKENS,
+            "meshes": out}
+
+
+def _mesh_serve_work(rank, world):
+    checks = [_mesh_serve_check(rank, world, a) for a in MESH_SERVE]
+    full = [_mesh_serve_full(rank, world, a) for a in MESH_SERVE]
+    return {"world": world, "cross_check": checks, "full_width": full,
+            "flash_launches": world * sum(
+                m["flash_launches_per_card"] for r in full
+                for m in r["meshes"])}
+
+
+def mesh_serve_phase(dev):
+    """Serving sharded over the cards: W = the card count ranks, one card
+    each, over NCCL (`_mesh_serve_work`), spawned with a time limit. Prints
+    each model's f32 cross-check, and per mesh its prefill and decode
+    tokens per second, peak GB per card, wire bytes per device by kind of
+    one prefill and one decode step, flash launches by route and an MoE's
+    first-layer router_dropped."""
+    record = _spawn_mesh("mesh_serve", _mesh_serve_work)
+    world = record["world"]
+    for r in record["cross_check"]:
+        print(f"[mesh_serve] {r['arch']} f32 2 layers, prefill + "
+              f"{r['decode_steps']} decode steps vs the unsharded engine on "
+              f"card 0 (bars 1e-3, greedy tokens equal): "
+              f"{json.dumps(r['meshes'])}", flush=True)
+    for r in record["full_width"]:
+        for m in r["meshes"]:
+            print(f"[mesh_serve] {r['arch']} bf16 full width, mesh "
+                  f"{m['shape']}: {json.dumps(m)}", flush=True)
+    if world == 1:
+        print("[mesh_serve] one card: the (1, 1) mesh runs the mesh path "
+              "and issues no collective", flush=True)
     return record
 
 
@@ -2896,6 +3228,8 @@ def main():
     trainer = timed("carbon_trainer", carbon_trainer, dev)
     _free_device_memory()
     mesh_train = timed("mesh_train", mesh_train_phase, dev)
+    _free_device_memory()
+    mesh_serve = timed("mesh_serve", mesh_serve_phase, dev)
     smollm = f"{TRAIN_ARCH}__train_4k"
     dry = timed("dryrun", dryrun_phase, dev,
                 {smollm: train[0]["step_time_s"]})
@@ -2918,6 +3252,8 @@ def main():
                "carbon_trainer": trainer["launches"],
                "mesh_train": {**dict.fromkeys(_kernel_counters(), 0),
                               "flash_attention": mesh_train["flash_launches"]},
+               "mesh_serve": {**dict.fromkeys(_kernel_counters(), 0),
+                              "flash_attention": mesh_serve["flash_launches"]},
                "dryrun": dry["launches"], "examples": examples["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
@@ -2954,6 +3290,7 @@ def main():
               "carbon_serve": cserve, "flash_train": flash_train,
               "train_cross_check": train_cross, "train_full_width": train,
               "carbon_trainer": trainer, "mesh_train": mesh_train,
+              "mesh_serve": mesh_serve,
               "scan_backward": scan_bwd,
               "dryrun": {k: v for k, v in dry.items() if k != "table"},
               "examples": examples}
@@ -3010,7 +3347,7 @@ def main():
                         if k != "checked"},
         "carbon_trainer": {k: v for k, v in trainer.items()
                            if k not in ("losses", "twin_losses")},
-        "mesh_train": mesh_train,
+        "mesh_train": mesh_train, "mesh_serve": mesh_serve,
         "scan_backward": {k: {kk: vv for kk, vv in v.items()
                               if kk != "checked"}
                           for k, v in scan_bwd.items()}}}), flush=True)

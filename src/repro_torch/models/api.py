@@ -10,10 +10,11 @@ five families: dense and MoE (`transformer`), ssm (Mamba-2), hybrid
 
 An encdec prefill and loss also take ``batch["frames"]`` (B, enc_seq,
 d_model). `loss` (training) works for all five families; on a mesh
-(``mesh=``, local shards of the parameters and of the batch) for the
-dense family. `pspecs`, `shardings` and `input_pspecs` lay the
-parameters and inputs out on a mesh by the logical-axis rules
-(`repro_torch.models.sharding`).
+(``mesh=``, local shards of the parameters and of the batch), and
+`prefill` and `decode` on a mesh, for the dense and MoE families.
+`pspecs`, `shardings`, `cache_pspecs`, `cache_shardings` and
+`input_pspecs` lay the parameters, the decode caches and the inputs out
+on a mesh by the logical-axis rules (`repro_torch.models.sharding`).
 """
 from __future__ import annotations
 
@@ -74,20 +75,34 @@ class Model:
         global batch), `params` and `batch` are this process's shards
         and the loss is its share: the losses of the processes that hold
         distinct batch rows add up to the global loss."""
-        if mesh is None:
-            return self.mod.loss_fn(self.cfg, params, batch, remat=remat)
-        if self.cfg.family != DENSE:
-            raise NotImplementedError(
-                f"training the {self.cfg.family} family on a mesh is not "
-                f"ported yet; the dense family is")
         return self.mod.loss_fn(self.cfg, params, batch, remat=remat,
-                                mesh=mesh)
+                                **self._on_mesh(mesh, "training"))
 
-    def prefill(self, params, batch, pad_to: int = 0):
-        return self.mod.prefill(self.cfg, params, batch, pad_to=pad_to)
+    def prefill(self, params, batch, pad_to: int = 0, mesh=None):
+        """(last-position logits, cache). On a mesh
+        (`sharding.Mesh.for_batch` of the global prompts), `params` and
+        `batch` are this process's shards; so are the logits, laid out
+        ("batch", "tp"), and the cache (`cache_pspecs`)."""
+        return self.mod.prefill(self.cfg, params, batch, pad_to=pad_to,
+                                **self._on_mesh(mesh, "serving"))
 
-    def decode(self, params, cache, tokens):
-        return self.mod.decode_step(self.cfg, params, cache, tokens)
+    def decode(self, params, cache, tokens, mesh=None):
+        """(logits, cache) of one step; on a mesh, local shards as in
+        `prefill` (the mesh `prefill` was given)."""
+        return self.mod.decode_step(self.cfg, params, cache, tokens,
+                                    **self._on_mesh(mesh, "serving"))
+
+    def _on_mesh(self, mesh, what: str) -> dict:
+        """The family function's ``mesh`` argument: none without a mesh;
+        on a mesh, for the families ported there."""
+        if mesh is None:
+            return {}
+        if self.cfg.family not in (DENSE, MOE):
+            raise NotImplementedError(
+                f"{what} the {self.cfg.family} family on a mesh is not "
+                f"ported yet (ROADMAP item 16(c)); the dense and MoE "
+                f"families are")
+        return {"mesh": mesh}
 
     # -- caches --------------------------------------------------------------
     def cache_specs(self, batch: int, max_seq: int):
@@ -101,6 +116,15 @@ class Model:
         cache = PT.init_params(self.cache_specs(batch, max_seq), 0, device)
         cache["pos"] = 0
         return cache
+
+    def cache_pspecs(self, batch: int, max_seq: int, mesh, overrides=None):
+        return PT.param_pspecs(self.cache_specs(batch, max_seq), mesh,
+                               overrides)
+
+    def cache_shardings(self, batch: int, max_seq: int, mesh,
+                        overrides=None):
+        return PT.param_shardings(self.cache_specs(batch, max_seq), mesh,
+                                  overrides)
 
     # -- inputs ---------------------------------------------------------------
     def input_specs(self, shape: ShapeConfig) -> dict:

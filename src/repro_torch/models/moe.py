@@ -1,34 +1,54 @@
 """Top-k MoE with capacity-bounded dispatch and dense grouped matmuls
-(the reference's `src/repro/models/moe.py`, its local path).
+(the reference's `src/repro/models/moe.py`).
 
-The reference has two paths with one semantics: a scatter-based local
-path, and an expert-parallel ``shard_map`` over a device mesh. On one
-card only the local path has a meaning; it is ported here, op for op:
+Two paths, chosen as the reference chooses them (`moe_apply`):
+
+- the local path, on one card or without a mesh: every expert is
+  local, and capacity is per batch × expert (`_capacity` of the B·S
+  tokens of the call);
+- the expert-parallel path, on a mesh with a ``model`` axis (of any
+  size, 1 included): each process routes the tokens of its batch rows
+  (replicated over ``model``), keeps only the assignments to the
+  experts its ``model`` shard owns, gathers the layer's expert weights
+  over ``data`` in the activation dtype, runs them, and the partial
+  outputs are summed over ``model`` (the reference's psum combine).
+  Capacity is per token shard × expert: `_capacity` of the
+  (B / batch shards) · S tokens of one process. Where the batch axes do
+  not divide B, the model axis does not divide the experts or the data
+  axis does not divide d_model, the local path runs over the whole
+  batch instead (the reference's fallback; it changes the capacity).
+
+Op for op as the reference:
 
 - the router's product is float32 (the reference's bf16 × bf16 with
   ``preferred_element_type=float32``: products of bf16 values are exact
   in float32, so only the summation order can differ), then a softmax
   and the top k in descending order, ties to the lower expert (a stable
   descending sort, on the CPU and on the card alike);
-- capacity is per (sequence × expert): `_capacity` tokens an expert; a
-  token's slot is its rank among the assignments to its expert in
-  token-major order, and assignments past the capacity are dropped (the
-  residual connection carries them);
-- the expert FFN runs over all experts' capacity buffers (``ecd,edf``),
-  so a decode step reads every expert's weights;
+- a token's slot is its rank among the local assignments to its expert
+  in token-major order, and assignments past the capacity are dropped
+  (the residual connection carries them); the dropped share counts the
+  local assignments only;
+- the expert FFN runs over all local experts' capacity buffers
+  (``ecd,edf``), so a decode step reads every local expert's weights;
 - the combine adds ``out · w_j`` over j = 0…k−1 in the activation dtype,
   rounding after each product and each add, as the reference does.
 
-`moe_apply` returns ``(y, {"lb_loss", "router_dropped"})``.
+`moe_apply` returns ``(y, {"lb_loss", "router_dropped"})``; on a mesh
+both are the means over the batch and model shards, equal on every
+process.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.config import GEGLU, SWIGLU, ModelConfig
-from repro_torch.devmath import divide
 from repro_torch.models import layers as L
 from repro_torch.models.params import ParamSpec
+from repro_torch.models.sharding import (logical_to_pspec, redistribute,
+                                         use_weight)
 
 
 def moe_specs(cfg: ModelConfig) -> dict:
@@ -69,7 +89,9 @@ def _expert_ffn(cfg: ModelConfig, buf, wg, wi, wo, dtype):
 
 def _slots(ids, n_experts: int, capacity: int):
     """Whether each assignment is kept, and its slot in its expert's
-    buffer clamped to the last one; both (T, k).
+    buffer clamped to the last one; both (T, k). `ids` are local expert
+    ids, ``n_experts`` (or more) for an assignment to no local expert,
+    which is never kept.
 
     The slot is the rank among the assignments to the same expert in
     token-major order: an exclusive prefix count over the flattened
@@ -83,16 +105,19 @@ def _slots(ids, n_experts: int, capacity: int):
     oh = (rows[:, None] == ids.reshape(1, T * k)).to(torch.int32)
     slot = ((torch.cumsum(oh, dim=1, dtype=torch.int32) - oh) * oh).sum(
         0).reshape(T, k)
-    return slot < capacity, torch.clamp(slot, max=capacity - 1)
+    return (slot < capacity) & (ids < n_experts), torch.clamp(
+        slot, max=capacity - 1)
 
 
-def _dispatch_combine_local(cfg, x_flat, ids, weights, capacity, ffn):
-    """Scatter the tokens into per-expert buffers, run ffn, gather back.
+def _dispatch_combine_local(cfg, x_flat, ids, weights, capacity, ffn,
+                            e0: int = 0, n_local: int = 0):
+    """Scatter the tokens into the local experts' buffers, run ffn,
+    gather back.
 
-    x_flat (T, D); ids/weights (T, k). Returns (y (T, D), the dropped
-    share of the assignments). The reference's function also takes the
-    range of experts a mesh shard owns; on one card every expert is
-    local.
+    x_flat (T, D); ids/weights (T, k); experts [e0, e0 + n_local) are
+    local (n_local 0: all E of them, as on one card). Returns
+    (y (T, D): the local experts' contributions only, the dropped share
+    of the local assignments).
 
     Dispatch and combine loop over the k routing choices, so no (T·k, D)
     copy of the tokens is made, and every intermediate stays in the
@@ -101,9 +126,13 @@ def _dispatch_combine_local(cfg, x_flat, ids, weights, capacity, ffn):
     T, D = x_flat.shape
     k = cfg.top_k
     dtype = x_flat.dtype
-    keep, slot_c = _slots(ids, cfg.n_experts, capacity)
+    n_local = n_local or cfg.n_experts
+    local = (ids >= e0) & (ids < e0 + n_local)
+    keep, slot_c = _slots(torch.where(local, ids - e0, n_local), n_local,
+                          capacity)
+    e_loc = torch.where(local, ids - e0, 0)
 
-    buf = torch.zeros((cfg.n_experts, capacity, D), dtype=dtype,
+    buf = torch.zeros((n_local, capacity, D), dtype=dtype,
                       device=x_flat.device)
     for j in range(k):
         contrib = torch.where(keep[:, j, None], x_flat, 0)
@@ -111,17 +140,33 @@ def _dispatch_combine_local(cfg, x_flat, ids, weights, capacity, ffn):
         # its own (on the card, that of its sorted indices; not the
         # reference's). The sum is exact all the same: a kept assignment
         # owns its (expert, slot), so each cell gets at most one non-zero
-        # term; the dropped ones add zeros to the clamped last slot.
-        buf.index_put_((ids[:, j], slot_c[:, j]), contrib, accumulate=True)
+        # term; the dropped ones add zeros to the clamped last slot, the
+        # ones to other shards' experts zeros to local expert 0.
+        buf.index_put_((e_loc[:, j], slot_c[:, j]), contrib, accumulate=True)
 
-    out_buf = ffn(buf)                                    # (E, C, D)
+    out_buf = ffn(buf)                                    # (n_local, C, D)
 
     y = torch.zeros((T, D), dtype=dtype, device=x_flat.device)
     for j in range(k):
         w_j = torch.where(keep[:, j], weights[:, j], 0.0).to(dtype)
-        y = y + out_buf[ids[:, j], slot_c[:, j]] * w_j[:, None]
-    drop_frac = 1.0 - divide(keep.sum().float(), T * k)
+        y = y + out_buf[e_loc[:, j], slot_c[:, j]] * w_j[:, None]
+    drop_frac = 1.0 - (keep.sum().float()
+                       / local.sum().clamp(min=1).float())
     return y, drop_frac
+
+
+def _lb_loss(cfg: ModelConfig, ids, probs):
+    """The load-balancing loss of T routed tokens: E · Σ_e (mean router
+    probability of e) × (share of the T·k assignments to e)."""
+    E = cfg.n_experts
+    me = probs.mean(dim=0)
+    # 1/(T·k) added once per assignment, as the reference's scatter-add:
+    # equal addends give the same sum in any order, atomics included
+    share = torch.full((ids.numel(),), 1.0 / ids.numel(),
+                       dtype=torch.float32, device=ids.device)
+    ce = torch.zeros(E, dtype=torch.float32, device=ids.device).index_add_(
+        0, ids.reshape(-1), share)
+    return E * torch.sum(me * ce)
 
 
 def _moe_local_path(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple:
@@ -130,14 +175,7 @@ def _moe_local_path(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple:
     dtype = x.dtype
     x_flat = x.reshape(B * S, D)
     weights, ids, probs = _route(cfg, p["router"], x_flat)
-    me = probs.mean(dim=0)
-    # 1/(T·k) added once per assignment, as the reference's scatter-add:
-    # equal addends give the same sum in any order, atomics included
-    share = torch.full((ids.numel(),), 1.0 / (B * S * cfg.top_k),
-                       dtype=torch.float32, device=x.device)
-    ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
-        0, ids.reshape(-1), share)
-    lb = E * torch.sum(me * ce)
+    lb = _lb_loss(cfg, ids, probs)
     capacity = _capacity(B * S, cfg.top_k, E, cfg.capacity_factor)
 
     def ffn(buf):
@@ -148,7 +186,97 @@ def _moe_local_path(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple:
     return y.reshape(B, S, D), {"lb_loss": lb, "router_dropped": drop}
 
 
-def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> tuple:
-    """x: (B, S, D) -> (y (B, S, D), {"lb_loss", "router_dropped"});
-    capacity is per sequence group of the batch (the local path)."""
-    return _moe_local_path(cfg, p, x)
+# ---------------------------------------------------------------------------
+# On a mesh (local shards)
+# ---------------------------------------------------------------------------
+
+def _batch_axes(mesh) -> tuple:
+    return tuple(a for a in ("pod", "data") if a in mesh.sizes)
+
+
+def expert_parallel(cfg: ModelConfig, mesh, batch: int) -> bool:
+    """Whether `moe_apply` takes the expert-parallel path for a global
+    batch of `batch` rows on `mesh` (else the local path over the whole
+    batch): the reference's condition, word for word."""
+    n_batch = math.prod(mesh.size(a) for a in _batch_axes(mesh))
+    return not (batch % n_batch or cfg.n_experts % mesh.size("model")
+                or cfg.d_model % mesh.size("data"))
+
+
+def _weight_specs(cfg: ModelConfig, mesh) -> dict:
+    return {k: logical_to_pspec(s.axes, s.shape, mesh)
+            for k, s in moe_specs(cfg).items()}
+
+
+def _moe_mesh_path(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh) -> tuple:
+    """The expert-parallel path on this process's shards: x (B_loc, S, D)
+    its batch rows (the batch axes' chunk, the sequence whole,
+    replicated over ``model``), `p` its shards of the layer's weights.
+    Returns y for the same rows, replicated over ``model``.
+
+    Backward: the combine's all-reduce passes the whole gradient to every
+    model shard, whose gradient of x and of the router is then its
+    experts' part (a partial sum over ``model``, as a tensor-parallel
+    block's); each process back-propagates its own term of the averaged
+    ``lb_loss``."""
+    Bl, S, D = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    dtype = x.dtype
+    axes = _batch_axes(mesh)
+    n_batch = math.prod(mesh.size(a) for a in axes)
+    n_model = mesh.size("model")
+    E_loc = E // n_model
+    capacity = _capacity(Bl * S, k, E, cfg.capacity_factor)
+    specs = _weight_specs(cfg, mesh)
+    grads = mesh.batch + ("model",)
+    router = use_weight(p["router"], specs["router"], mesh,
+                        grad_partial=grads, dtype=dtype)
+    # FSDP: this layer's expert weights gathered over "data" (bf16 wire)
+    w = {n: use_weight(p[n], specs[n], mesh, keep=("model",),
+                       grad_partial=mesh.batch, dtype=dtype)
+         for n in ("wg", "wi", "wo")}
+    x_flat = x.reshape(Bl * S, D)
+    weights, ids, probs = _route(cfg, router, x_flat)
+    lb = _lb_loss(cfg, ids, probs)
+    e0 = mesh.index("model") * E_loc
+    y, drop = _dispatch_combine_local(
+        cfg, x_flat, ids, weights, capacity,
+        lambda buf: _expert_ffn(cfg, buf, w["wg"], w["wi"], w["wo"], dtype),
+        e0, E_loc)
+    y = redistribute(y, (), (), mesh, partial=("model",))  # the EP combine
+    # the means over the batch and model shards, in one all-reduce an axis
+    stats = redistribute(torch.stack([lb, drop.detach()]), (), (), mesh,
+                         partial=axes + ("model",)) / (n_batch * n_model)
+    return y.reshape(Bl, S, D), {"lb_loss": stats[0],
+                                 "router_dropped": stats[1]}
+
+
+def _moe_gathered_path(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                       mesh) -> tuple:
+    """The reference's fallback on a mesh: the local path over the whole
+    batch, on every process (its rows and the weights gathered); returns
+    this process's rows. Every process computes the same whole gradient,
+    so none is summed."""
+    specs = _weight_specs(cfg, mesh)
+    rows = (mesh.batch or None, None, None)
+    whole = {n: use_weight(p[n], specs[n], mesh) for n in p}
+    y, aux = _moe_local_path(cfg, whole, redistribute(x, rows, (None,) * 3,
+                                                      mesh))
+    return redistribute(y, (None,) * 3, rows, mesh), aux
+
+
+def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor, mesh=None) -> tuple:
+    """x: (B, S, D) -> (y (B, S, D), {"lb_loss", "router_dropped"}).
+
+    Without a mesh, or on a mesh without a ``model`` axis: the local path
+    (capacity per batch × expert). On a mesh (`sharding.Mesh.for_batch` of
+    the global (B, S)), x and y are this process's batch rows with the
+    sequence whole, replicated over ``model``, and `p` its shards of the
+    layer's weights: the expert-parallel path where `expert_parallel`
+    holds, else the local path over the whole batch."""
+    if mesh is None or "model" not in mesh.sizes:
+        return _moe_local_path(cfg, p, x)
+    batch = x.shape[0] * math.prod(mesh.size(a) for a in mesh.batch)
+    if expert_parallel(cfg, mesh, batch):
+        return _moe_mesh_path(cfg, p, x, mesh)
+    return _moe_gathered_path(cfg, p, x, mesh)

@@ -381,6 +381,19 @@ def redistribute(x: torch.Tensor, src: Sequence, dst: Sequence, mesh: Mesh,
     return _Steps.apply(x, steps, mesh, dtype)
 
 
+def use_weight(t: torch.Tensor, spec: Sequence, mesh: Mesh, keep=(),
+               grad_partial=(), dtype=None) -> torch.Tensor:
+    """A weight's local shard (PartitionSpec `spec`) as a layer uses it:
+    gathered over every mesh axis of `spec` but those in `keep`, cast to
+    `dtype` first; `grad_partial` are the axes over which its gradient is
+    a partial sum (`redistribute`'s)."""
+    dst = tuple(tuple(a for a in spec_axes(e) if a in keep) or None
+                for e in spec)
+    dst = tuple(e[0] if e is not None and len(e) == 1 else e for e in dst)
+    return redistribute(t, spec, dst, mesh, grad_partial=grad_partial,
+                        dtype=dtype)
+
+
 def constrain(x: torch.Tensor, logical: Sequence, mesh: Optional[Mesh] = None,
               *, src: Sequence = (), shape: Sequence[int] = (), partial=(),
               grad_partial=()) -> torch.Tensor:
@@ -399,18 +412,23 @@ def constrain(x: torch.Tensor, logical: Sequence, mesh: Optional[Mesh] = None,
 # Whole tensors <-> local shards
 # ---------------------------------------------------------------------------
 
+def shard_range(entry, n: int, mesh: Mesh) -> tuple:
+    """(start, size) of this process's chunk of a dimension of size `n`
+    laid out as PartitionSpec entry `entry`."""
+    axes = spec_axes(entry)
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.size(a) + mesh.index(a)
+    size = n // math.prod(mesh.size(a) for a in axes)
+    return idx * size, size
+
+
 def _local_view(full: torch.Tensor, pspec: Sequence, mesh: Mesh):
     """The view of `full` that is this process's shard under `pspec`."""
     out = full
     for d, entry in enumerate(pspec):
-        axes = spec_axes(entry)
-        if not axes:
-            continue
-        idx = 0
-        for a in axes:
-            idx = idx * mesh.size(a) + mesh.index(a)
-        size = full.shape[d] // math.prod(mesh.size(a) for a in axes)
-        out = out.narrow(d, idx * size, size)
+        if spec_axes(entry):
+            out = out.narrow(d, *shard_range(entry, full.shape[d], mesh))
     return out
 
 

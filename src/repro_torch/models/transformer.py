@@ -32,10 +32,10 @@ block's logits in the backward (`torch.utils.checkpoint`, as the
 reference's ``jax.checkpoint``), so no (B, S, vocab) logits stay
 resident.
 
-On a mesh (`loss_fn(..., mesh=)`, dense family) each process holds its
-shard of every parameter (`Model.shardings`) and of the batch, and runs
-the reference's GSPMD layouts by hand (`repro_torch.models.sharding`),
-at the reference's `constrain` points:
+On a mesh (`loss_fn`, `prefill` and `decode_step` with ``mesh=``) each
+process holds its shard of every parameter (`Model.shardings`) and of
+the batch, and runs the reference's GSPMD layouts by hand
+(`repro_torch.models.sharding`), at the reference's `constrain` points:
 
 - weights are gathered over the data axis where they are used (FSDP;
   their gradients reduce-scattered back) and stay split over the model
@@ -48,27 +48,46 @@ at the reference's `constrain` points:
   the model axis along the sequence, gathered before attention and the
   MLP and reduce-scattered after them;
 - attention runs on the local batch rows and heads, through the same
-  `L.attention` (the flash kernel on the card).
+  `L.attention` (the flash kernel on the card);
+- the MoE block runs the reference's expert-parallel path
+  (`moe.moe_apply` on a mesh) on the sequence gathered whole.
 
 The loss a process returns is its share: the sum over the processes
 that hold distinct batch rows is the global mean loss.
+
+Serving on a mesh keeps the residual stream whole between layers (the
+reference's prefill and decode constrain it to ("batch", "seq", None))
+and the decode cache laid out by `cache.kv_cache_specs`: its sequence
+split over the model axis ("kv_seq") where that axis divides it, every
+head whole. The prefill gathers each layer's new keys and values over
+the heads and writes this process's chunk of the sequence; a decode
+step gathers the new token's query, key and value over the heads, the
+process that owns slot ``pos`` writes it, and attention over the cache
+is flash-decoding: each process takes the softmax statistics of its own
+slots, and the maximum, then the rescaled sums and outputs are
+all-reduced over the axis. The logits come out laid out as ("batch",
+"tp"); the cache also carries its global slot count (``max_seq``),
+which its local shape does not tell.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.config import MOE, ModelConfig
+from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE_MOD
 from repro_torch.models.cache import kv_cache_specs
 from repro_torch.models.params import (DTYPES, ParamSpec, flatten,
                                       param_pspecs, stack_specs, tree_map)
 from repro_torch.models.sharding import (all_reduce, constrain,
-                                         redistribute, spec_axes)
+                                         logical_to_pspec, redistribute,
+                                         shard_range, spec_axes, use_weight)
 
 
 # ---------------------------------------------------------------------------
@@ -256,7 +275,7 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
             remat: str = "none", mesh=None) -> tuple:
     """(total loss, {"ce_loss", "lb_loss"}): the chunked cross-entropy plus
     0.01 x the MoE load-balancing loss (0 for a dense model). On a mesh
-    (dense family) this process's share of the loss."""
+    this process's share of the loss."""
     if mesh is not None:
         return _mesh_loss(cfg, params, batch, remat, mesh)
     x, lb_loss = forward(cfg, params, batch["tokens"], remat=remat)
@@ -267,21 +286,22 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
 
 
 # ---------------------------------------------------------------------------
-# Train forward + loss on a mesh (dense family)
+# Train forward + loss on a mesh
 # ---------------------------------------------------------------------------
 
 _FULL = ("batch", "seq", None)      # a layer's input, its sequence whole
 
 
 class _Layout:
-    """The dense model's layouts on a mesh for a global (B, S) batch, from
-    the reference's `constrain` points: the residual stream's logical
-    axes (`res`, with `sp` the axes that split its sequence) and the mesh
-    axes that split the heads (q and k, ("batch", "seq", "tp", None)),
-    d_ff and the vocabulary (("batch", "seq", "tp")) where the layer runs
-    tensor-parallel, each empty where the rules drop them."""
+    """The model's layouts on a mesh for a global (B, S) batch, from the
+    reference's `constrain` points: the residual stream's logical axes
+    (`res`: `L.residual_axes` in training, whole in serving; `sp` the
+    axes that split its sequence) and the mesh axes that split the heads
+    (q and k, ("batch", "seq", "tp", None)), d_ff and the vocabulary
+    (("batch", "seq", "tp")) where the layer runs tensor-parallel, each
+    empty where the rules drop them."""
 
-    def __init__(self, cfg: ModelConfig, mesh, B: int, S: int):
+    def __init__(self, cfg: ModelConfig, mesh, B: int, S: int, res=None):
         d = cfg.d_model
         tp = lambda n: spec_axes(mesh.pspec(  # noqa: E731
             ("batch", "seq", "tp"), (B, S, n))[2])
@@ -290,7 +310,7 @@ class _Layout:
         k = spec_axes(mesh.pspec(("batch", "seq", "tp", None),
                                  (B, S, cfg.n_kv_heads, cfg.head_dim))[2])
         self.mesh, self.shape = mesh, (B, S, d)
-        self.res = L.residual_axes(cfg)
+        self.res = res or L.residual_axes(cfg)
         self.sp = spec_axes(mesh.pspec(self.res, self.shape)[1])
         self.heads = q if q == k else ()
         self.ff = tp(cfg.d_ff)
@@ -314,18 +334,26 @@ class _Layout:
         storage spec but `keep`, cast to `dtype`; its gradient summed
         over the axes whose processes hold distinct data (the batch
         axes and `partial`)."""
-        dst = tuple(tuple(a for a in spec_axes(e) if a in keep) or None
-                    for e in spec)
-        dst = tuple(e[0] if e is not None and len(e) == 1 else e
-                    for e in dst)
-        return redistribute(t, spec, dst, self.mesh,
-                            grad_partial=self.mesh.batch + tuple(partial),
-                            dtype=dtype)
+        return use_weight(t, spec, self.mesh, keep,
+                          self.mesh.batch + tuple(partial), dtype)
+
+    def whole_heads(self, t):
+        """(B, S, H_local, Dh) on the local heads -> every head."""
+        return redistribute(t, (None, None, self.heads or None, None),
+                            (None,) * 4, self.mesh)
+
+    def local_heads(self, t):
+        """(B, S, H, Dh) -> this process's heads."""
+        return redistribute(t, (None,) * 4,
+                            (None, None, self.heads or None, None), self.mesh)
 
 
 def _mesh_layer(cfg: ModelConfig, lay: _Layout, specs: dict, x, lp,
-                positions):
-    """One dense layer on local shards; x in the residual layout."""
+                positions, attn_fn=None):
+    """One layer on local shards; x in the residual layout. `attn_fn(q,
+    k, v)` (on the local heads; default causal attention) returns the
+    attention's output on the local heads. Returns (x, the feed-forward
+    block's aux)."""
     dtype = DTYPES[cfg.dtype] if cfg.cast_weights else None
     w = lambda path, keep=(), partial=(): lay.weight(  # noqa: E731
         lp[path], specs[path], keep, partial, dtype)
@@ -340,15 +368,27 @@ def _mesh_layer(cfg: ModelConfig, lay: _Layout, specs: dict, x, lp,
         for k in ("qnorm", "knorm"):
             attn[k] = w(f"attn/{k}", partial=lay.heads)
     q, k, v = L.qkv_project(local, attn, h, positions)
-    o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    if attn_fn is None:
+        o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+    else:
+        o = attn_fn(q, k, v)
     y = L.output_project(local, attn, o)
     x = x + lay.to(y, lay.res, _FULL, partial=lay.heads)
     h = L.apply_norm(x, {"scale": w("ln2/scale", partial=lay.sp)},
                      cfg.norm_eps)
+    if cfg.family == MOE:
+        # the expert-parallel path's x gradient is a partial sum over the
+        # model axis (each shard's experts); the fallback's is whole
+        ep = MOE_MOD.expert_parallel(cfg, lay.mesh, lay.shape[0])
+        h = lay.to(h, _FULL, lay.res, grad_partial=("model",) if ep else ())
+        y, aux = MOE_MOD.moe_apply(
+            cfg, {k: lp[f"moe/{k}"] for k in MOE_MOD.moe_specs(cfg)}, h,
+            mesh=lay.mesh)
+        return x + lay.to(y, lay.res, _FULL), aux
     h = lay.to(h, _FULL, lay.res, grad_partial=lay.ff)
     mlp = {k: w(f"mlp/{k}", keep=lay.ff) for k in L.mlp_specs(cfg)}
     y = L.mlp(h, mlp, cfg.mlp_variant, DTYPES[cfg.dtype])
-    return x + lay.to(y, lay.res, _FULL, partial=lay.ff)
+    return x + lay.to(y, lay.res, _FULL, partial=lay.ff), {}
 
 
 def _embed_mesh(cfg: ModelConfig, lay: _Layout, table, tokens):
@@ -394,9 +434,7 @@ def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
                mesh) -> tuple:
     """`loss_fn` on local shards (`mesh.batch`: the axes that split the
     batch rows); returns this process's share of the loss and the global
-    ce_loss as a metric."""
-    if cfg.family != "dense":
-        raise NotImplementedError("only the dense family trains on a mesh")
+    ce_loss and lb_loss as metrics."""
     tokens, labels = batch["tokens"], batch["labels"]
     nb = 1
     for a in mesh.batch:
@@ -408,13 +446,18 @@ def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
     embed = lay.weight(params["embed"], pspecs["embed"], keep=lay.vocab)
     x = _embed_mesh(cfg, lay, embed, tokens)
     positions = torch.arange(S, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(x, lp):
-        return _mesh_layer(cfg, lay, lspecs, x, dict(flatten(lp)), positions)
+        x, aux = _mesh_layer(cfg, lay, lspecs, x, dict(flatten(lp)),
+                             positions)
+        return x, aux.get("lb_loss", zero)
 
     step = maybe_remat(body, remat)
+    lbs = []
     for lp in unbind_layers(params["layers"], cfg.n_layers):
-        x = step(x, lp)
+        x, lb = step(x, lp)
+        lbs.append(lb)
     fn = lay.weight(params["final_norm"]["scale"],
                     pspecs["final_norm"]["scale"], partial=lay.sp)
     x = L.apply_norm(x, {"scale": fn}, cfg.norm_eps)
@@ -444,7 +487,14 @@ def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
     ce = share.detach()
     for a in mesh.batch:
         ce = all_reduce(ce, mesh, a)
-    return share, {"ce_loss": ce, "lb_loss": torch.zeros_like(ce)}
+    if cfg.family != MOE:
+        return share, {"ce_loss": ce, "lb_loss": torch.zeros_like(ce)}
+    # lb is the same on every process, an all-reduce whose backward hands
+    # each process its own term: its value enters each batch shard's share
+    # once over the shards, its gradient whole
+    lb = torch.stack(lbs).sum()
+    total = share + 0.01 * (lb.detach() / nb + (lb - lb.detach()))
+    return total, {"ce_loss": ce, "lb_loss": lb.detach()}
 
 
 # ---------------------------------------------------------------------------
@@ -452,12 +502,15 @@ def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
 # ---------------------------------------------------------------------------
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict,
-            pad_to: int = 0) -> tuple:
+            pad_to: int = 0, mesh=None) -> tuple:
     """Process full prompts; return (last-position logits (B,V), cache).
 
     ``pad_to``: total cache capacity (>= S) so that decode steps have
-    slots to write.
+    slots to write. On a mesh (`sharding.Mesh.for_batch` of the global
+    prompts), this process's shards in and out (`_mesh_prefill`).
     """
+    if mesh is not None:
+        return _mesh_prefill(cfg, params, batch, pad_to, mesh)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_tokens(cfg, params, tokens)
@@ -479,9 +532,12 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor) -> tuple:
+                tokens: torch.Tensor, mesh=None) -> tuple:
     """One decode step. tokens (B,); returns (logits (B,V), cache) with
-    the new key and value written at slot ``pos`` in place."""
+    the new key and value written at slot ``pos`` in place. On a mesh,
+    this process's shards in and out (`_mesh_decode`)."""
+    if mesh is not None:
+        return _mesh_decode(cfg, params, cache, tokens, mesh)
     pos = int(cache["pos"])
     ck, cv = cache["k"], cache["v"]
     if pos >= ck.shape[3]:
@@ -504,3 +560,129 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return kv_cache_specs(cfg, batch, max_seq)
+
+
+# ---------------------------------------------------------------------------
+# Prefill / decode on a mesh
+# ---------------------------------------------------------------------------
+
+def _serve_setup(cfg: ModelConfig, params: dict, tokens, S: int, mesh):
+    """(layout, per-layer specs, embedding as used, the embedded tokens,
+    global batch) for a serving step on local shards."""
+    B = tokens.shape[0] * math.prod(mesh.size(a) for a in mesh.batch)
+    lay = _Layout(cfg, mesh, B, S, res=_FULL)
+    pspecs = param_pspecs(specs(cfg), mesh)
+    lspecs = {p: s[1:] for p, s in flatten(pspecs["layers"])}
+    embed = lay.weight(params["embed"], pspecs["embed"], keep=lay.vocab)
+    x = _embed_mesh(cfg, lay, embed, tokens)
+    return lay, pspecs, lspecs, embed, x, B
+
+
+def _mesh_logits(cfg: ModelConfig, lay: _Layout, params: dict, pspecs,
+                 embed, x):
+    """The last position's logits (B_local, V_local): final norm, then the
+    unembedding on this process's vocabulary, laid out ("batch", "tp")."""
+    fn = lay.weight(params["final_norm"]["scale"],
+                    pspecs["final_norm"]["scale"])
+    x = L.apply_norm(x[:, -1:], {"scale": fn}, cfg.norm_eps)
+    head = {"embed": embed}
+    if not cfg.tie_embeddings:
+        head["unembed"] = lay.weight(params["unembed"], pspecs["unembed"],
+                                     keep=lay.vocab)
+    return unembed(cfg, head, x)[:, 0]
+
+
+def _kv_cache_pspec(cfg: ModelConfig, mesh, batch: int, max_seq: int):
+    """The PartitionSpec of the (L, B, Hkv, max_seq, Dh) key or value
+    cache on `mesh` (`cache.kv_cache_specs`)."""
+    spec = kv_cache_specs(cfg, batch, max_seq)["k"]
+    return logical_to_pspec(spec.axes, spec.shape, mesh)
+
+
+def _mesh_prefill(cfg: ModelConfig, params: dict, batch: dict, pad_to: int,
+                  mesh) -> tuple:
+    """`prefill` on local shards: this process's prompt rows in, its
+    logits (rows, vocabulary) and cache shard out. Attention runs on the
+    local rows and heads (the flash kernel on the card); each layer's
+    keys and values are gathered over the heads and this process's
+    chunk of the cache's sequence is written."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    lay, pspecs, lspecs, embed, x, B = _serve_setup(cfg, params, tokens, S,
+                                                    mesh)
+    cap = max(pad_to, S)
+    start, n = shard_range(_kv_cache_pspec(cfg, mesh, B, cap)[3], cap, mesh)
+    lo, hi = min(start, S), min(start + n, S)       # prompt slots held here
+    kv_shape = (cfg.n_layers, x.shape[0], cfg.n_kv_heads, n, cfg.head_dim)
+    ck = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
+    cv = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
+    positions = torch.arange(S, device=x.device)
+    for i in range(cfg.n_layers):
+        def attn_fn(q, k, v, i=i):
+            for c, t in ((ck, k), (cv, v)):
+                c[i, :, :, lo - start:hi - start] = lay.whole_heads(
+                    t)[:, lo:hi].transpose(1, 2)
+            return L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        x, _ = _mesh_layer(cfg, lay, lspecs, x, dict(flatten(layer(
+            params["layers"], i))), positions, attn_fn)
+    logits = _mesh_logits(cfg, lay, params, pspecs, embed, x)
+    return logits, {"k": ck, "v": cv, "pos": S, "max_seq": cap}
+
+
+def _split_decode_attention(q, ck, cv, pos: int, start: int, mesh, axes):
+    """One query token against this process's cache slots [start, start +
+    n), the others' on the mesh axes `axes` (flash-decoding). q (B, 1,
+    Hq, Dh); ck, cv (B, Hkv, n, Dh). `attention_ref`'s softmax (float32,
+    scale Dh^-1/2, slots past ``pos`` masked) with the maximum, then the
+    rescaled sums and outputs, all-reduced over `axes`."""
+    B, _, Hq, Dh = q.shape
+    Hkv, n = ck.shape[1], ck.shape[2]
+    qg = q.reshape(B, Hkv, Hq // Hkv, Dh).float() * Dh ** -0.5
+    s = torch.einsum("bhgd,bhkd->bhgk", qg, ck.float())
+    valid = torch.arange(start, start + n, device=q.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    for a in axes:
+        m = all_reduce(m, mesh, a, torch.distributed.ReduceOp.MAX)
+    p = torch.exp(s - m)
+    part = torch.cat([torch.einsum("bhgk,bhkd->bhgd", p, cv.float()),
+                      p.sum(-1, keepdim=True)], dim=-1)
+    for a in axes:
+        part = all_reduce(part, mesh, a)
+    o = part[..., :Dh] / part[..., Dh:]
+    return o.reshape(B, 1, Hq, Dh).to(q.dtype)
+
+
+def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict, tokens,
+                 mesh) -> tuple:
+    """`decode_step` on local shards: this process's rows of the tokens
+    in, its logits (rows, vocabulary) out, the cache shard written in
+    place where it holds slot ``pos``."""
+    pos, cap = int(cache["pos"]), int(cache["max_seq"])
+    ck, cv = cache["k"], cache["v"]
+    if pos >= cap:
+        raise IndexError(f"the cache is full ({cap} slots); prefill with a "
+                         f"larger pad_to")
+    lay, pspecs, lspecs, embed, x, B = _serve_setup(cfg, params,
+                                                    tokens[:, None], 1, mesh)
+    entry = _kv_cache_pspec(cfg, mesh, B, cap)[3]
+    start, n = shard_range(entry, cap, mesh)
+    positions = torch.arange(pos, pos + 1, device=x.device)
+    for i in range(cfg.n_layers):
+        def attn_fn(q, k, v, i=i):
+            q, k, v = (lay.whole_heads(t) for t in (q, k, v))
+            if start <= pos < start + n:
+                ck[i, :, :, pos - start] = k[:, 0]
+                cv[i, :, :, pos - start] = v[:, 0]
+            if n < cap:
+                o = _split_decode_attention(q, ck[i], cv[i], pos, start,
+                                            mesh, spec_axes(entry))
+            else:
+                o = L.attention(q, ck[i].transpose(1, 2),
+                                cv[i].transpose(1, 2), causal=True,
+                                q_offset=pos, kv_len=pos + 1)
+            return lay.local_heads(o)
+        x, _ = _mesh_layer(cfg, lay, lspecs, x, dict(flatten(layer(
+            params["layers"], i))), positions, attn_fn)
+    logits = _mesh_logits(cfg, lay, params, pspecs, embed, x)
+    return logits, {**cache, "pos": pos + 1}

@@ -14,6 +14,15 @@ host read of the tokens. Greedy decoding is ``argmax`` (the first
 maximum, as ``jnp.argmax``). Sampling draws with ``torch.multinomial``
 from the softmax of the logits with the caller's generator: the same
 distribution as ``jax.random.categorical``, not the same draws.
+
+On a mesh (``mesh=``, a `sharding.Mesh`; one process a device, the
+counterpart of the reference's jitted engine run on sharded parameters
+under a mesh) every process of the mesh runs `generate` with the same
+prompts: the parameters are this process's shards (`Model.shardings`),
+the prompts are cut to its ("batch", "seq") slice, prefill and decode
+run on local shards, and each step's logits are gathered whole (batch
+and vocabulary) so that every process picks the same tokens. `stats`
+count the whole batch's tokens.
 """
 from __future__ import annotations
 
@@ -25,9 +34,11 @@ import numpy as np
 import torch
 
 from repro_torch.config import ENCDEC
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
-from repro_torch.models.params import DTYPES, tree_map
+from repro_torch.models.params import DTYPES, shard_tree, tree_map
+from repro_torch.models.sharding import Mesh, NamedSharding, logical_to_pspec
 
 
 @dataclass
@@ -35,17 +46,22 @@ class ServeEngine:
     model: Model
     params: Optional[dict] = None
     device: Union[str, torch.device] = "cuda"
+    mesh: Optional[Mesh] = None
 
     def __post_init__(self):
-        self.device = resolve_device(self.device)
+        self.device = resolve_device(self.mesh.device if self.mesh is not None
+                                     else self.device)
         self.stats = {"prefill_tokens": 0, "decode_tokens": 0,
                       "prefill_s": 0.0, "decode_s": 0.0}
         self._prepared = (None, None)      # (params it came from, prepared)
 
     def load(self, seed=0):
         """Seeded parameters on the engine's device (`seed`: an int or a
-        torch.Generator)."""
+        torch.Generator); on a mesh, this process's shards of them."""
         self.params = self.model.init(seed, device=self.device)
+        if self.mesh is not None:
+            self.params = shard_tree(self.params,
+                                     self.model.shardings(self.mesh))
         return self
 
     def prepared_params(self) -> dict:
@@ -59,7 +75,11 @@ class ServeEngine:
     def prefill_batch(self, prompts) -> dict:
         """The prefill's inputs for prompts (B, S) on the engine's device:
         the tokens, and for an encoder-decoder zero frames (the frontend
-        stub)."""
+        stub); on a mesh, this process's slice of the tokens."""
+        if self.mesh is not None:
+            tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
+            return shard_batch({"tokens": tokens},
+                               self.mesh.for_batch(tokens.shape))
         tokens = torch.as_tensor(prompts, dtype=torch.long,
                                  device=self.device)
         batch = {"tokens": tokens}
@@ -83,11 +103,16 @@ class ServeEngine:
             raise RuntimeError("call load() first or pass params")
         params = self.prepared_params()
         batch = self.prefill_batch(prompts)
-        B, S = batch["tokens"].shape
+        B, S = np.shape(prompts)
+        on_mesh = {}
+        if self.mesh is not None:
+            on_mesh["mesh"] = self.mesh.for_batch((B, S))
         self._sync()
         t0 = time.perf_counter()
         logits, cache = self.model.prefill(params, batch,
-                                           pad_to=S + max_new_tokens)
+                                           pad_to=S + max_new_tokens,
+                                           **on_mesh)
+        logits = self._whole(logits, B)
         self._sync()
         self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += B * S
@@ -105,7 +130,9 @@ class ServeEngine:
                     out = out[:, :i + 1]
                     break
             t0 = time.perf_counter()
-            logits, cache = self.model.decode(params, cache, tok)
+            logits, cache = self.model.decode(params, cache, self._rows(tok, B),
+                                              **on_mesh)
+            logits = self._whole(logits, B)
             if greedy:
                 tok = torch.argmax(logits, -1)
             else:
@@ -118,6 +145,22 @@ class ServeEngine:
             if duty < 1.0:            # vertical scaling: decode-rate cap
                 time.sleep(dt * (1.0 / max(duty, 1e-2) - 1.0))
         return {"tokens": out, "stats": dict(self.stats)}
+
+    def _whole(self, logits, B: int):
+        """The (B, V) logits whole: on a mesh, gathered from this
+        process's ("batch", "tp") shard."""
+        if self.mesh is None:
+            return logits
+        spec = logical_to_pspec(("batch", "tp"),
+                                (B, self.model.cfg.vocab_size), self.mesh)
+        return NamedSharding(self.mesh, spec).gather(logits)
+
+    def _rows(self, tokens, B: int):
+        """The next step's tokens (B,): on a mesh, this process's rows."""
+        if self.mesh is None:
+            return tokens
+        spec = logical_to_pspec(("batch",), (B,), self.mesh)
+        return NamedSharding(self.mesh, spec).shard(tokens)
 
 
 def throughput_tokens_per_s(stats: dict) -> dict:

@@ -198,3 +198,45 @@ def test_moving_an_axis_between_dimensions_is_refused():
             return self.sizes[a]
     with pytest.raises(ValueError, match="all-to-all"):
         SH._plan(("model", None), (None, "model"), _Mesh())
+
+
+CACHE_MESHES = [((2, 2), ("data", "model")), ((1, 4), ("data", "model")),
+                ((4, 1), ("data", "model"))]
+
+
+@pytest.mark.parametrize("arch", list_archs())
+def test_cache_pspecs_equal_the_references(arch):
+    """`Model.cache_pspecs` of every family's decode cache (KV caches with
+    their "kv_seq" sequence, SSM and RG-LRU states, Whisper's
+    cross-attention memory), for the smoke and the published configs, at
+    the decode_32k shape and at small batches and lengths that the mesh
+    axes divide and do not, equals the reference's on (2, 2), (1, 4) and
+    (4, 1)."""
+    n = 0
+    for which in ("smoke", "full"):
+        model = get_model(getattr(get_arch(arch), which))
+        ref = ref_get_model(getattr(ref_get_arch(arch), which))
+        for shape, axes in CACHE_MESHES:
+            jm, pm = _fake_mesh(shape, axes), _port_mesh(shape, axes)
+            for batch, max_seq in ((128, 32768), (4, 24), (3, 21)):
+                got = _as_tuples(model.cache_pspecs(batch, max_seq, pm))
+                want = _as_tuples(ref.cache_pspecs(batch, max_seq, jm))
+                assert got == want, (which, shape, batch, max_seq)
+                n += len(want)
+    assert n > 0
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b",
+                                  "whisper-base"])
+def test_unported_families_refuse_a_mesh(arch):
+    """Training and serving the SSM, hybrid and encoder-decoder families
+    on a mesh is not ported: `loss`, `prefill` and `decode` with a mesh
+    raise NotImplementedError (before touching the mesh) rather than
+    running something else."""
+    model = get_model(get_arch(arch).smoke)
+    mesh = object()
+    for call in (lambda: model.loss({}, {}, mesh=mesh),
+                 lambda: model.prefill({}, {}, mesh=mesh),
+                 lambda: model.decode({}, {}, None, mesh=mesh)):
+        with pytest.raises(NotImplementedError, match=r"16\(c\)"):
+            call()

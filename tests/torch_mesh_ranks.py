@@ -27,11 +27,12 @@ from repro_torch.launch.mesh import describe, make_local_mesh, make_mesh
 from repro_torch.models import sharding as SH
 from repro_torch.models.api import get_model
 from repro_torch.models.params import (flatten, gather_tree, param_shardings,
-                                       shard_tree, unflatten)
+                                       shard_tree, tree_map, unflatten)
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import loop as TL
 
 SEQ, BATCH, MICRO = 16, 8, 4
+N_MOE_STEPS = 3
 TRAINER_STEPS = 8       # two migrations: 4 -> 2 ranks, then 2 -> 1
 
 
@@ -324,4 +325,270 @@ def job_fault(rank, out):
     dist.all_reduce(torch.ones(1))
 
 
-JOBS = {"four": job_four, "two": job_two, "fault": job_fault}
+# ---------------------------------------------------------------------------
+# The MoE family and serving on a mesh (`tests/test_torch_mesh_serve.py`;
+# the reference's side is `tests/torch_mesh_reference.py`)
+# ---------------------------------------------------------------------------
+
+SERVE_ARCHS = ("smollm-135m", "olmoe-1b-7b")
+MOE_ARCH = "olmoe-1b-7b"
+LAYER_B, LAYER_S, LAYER_B_ODD = 4, 16, 3      # B_ODD: no data axis divides
+CFS = (1.25, 8.0)
+LOSS_B, LOSS_S = 4, 16
+STEP_B, STEP_MICRO = 8, 4
+SERVE_B, PROMPT, DECODE = 4, 12, 8
+PADS = (24, 21)       # 24: the model axes (2, 4) divide it; 21: neither
+ENGINE_NEW = 8
+FOUR = {"layer": ("2x2", "1x4", "4x1"), "odd": ("2x2",),
+        "loss": ("2x2", "1x4", "4x1"), "serve": ("2x2", "1x4"),
+        "engine": ("2x2",)}
+TWO = {"layer": ("1x2", "2x1"), "serve": ("1x2",)}
+
+
+def shape_of(name):
+    return tuple(int(x) for x in name.split("x"))
+
+
+def serve_cfg(arch, **kw):
+    """The smoke config of `arch` in float32."""
+    return dataclasses.replace(get_arch(arch).smoke, dtype="float32", **kw)
+
+
+def moe_hidden(cfg, B, S, seed):
+    """Hidden states with a shared direction, so that the router favours
+    some experts and capacity binds (as `tests/test_torch_moe.py`)."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, S, cfg.d_model)) + 1.5 * rng.normal(
+        size=cfg.d_model)
+    return x.astype(np.float32)
+
+
+def prompts(cfg, B, S, seed):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)
+
+
+def lm_batch(cfg, B, S, seed):
+    tok = prompts(cfg, B, S + 1, seed)
+    return {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+
+
+def kept(dispatch_combine, k, T, D):
+    """The kept mask (T, k), read through a dispatch-and-combine function
+    itself: tokens of ones, the identity as the expert FFN and routing
+    weight 1 on choice j only give y[:, 0] = keep[:, j] (as
+    `tests/test_torch_moe.py`)."""
+    choice = np.eye(k, dtype=np.float32)
+    cols = [np.asarray(dispatch_combine(np.ones((T, D), np.float32),
+                                        choice[[j] * T]))[:, 0]
+            for j in range(k)]
+    return np.stack(cols, axis=1) == 1.0
+
+
+def _ref_params(out, arch):
+    """The reference's PRNGKey(0) parameters of `arch`, written by the
+    reference's side, through `convert.from_reference_params`."""
+    from repro_torch.convert import from_reference_params
+    flat = dict(np.load(out / f"params_{arch}.npz"))
+    tree: dict = {}
+    for path, v in flat.items():
+        node = tree
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return from_reference_params(serve_cfg(arch), tree, device="cpu")
+
+
+def _gather_rows(x, mesh, ndim):
+    """A tensor whose rows are split over the batch axes, whole."""
+    spec = (mesh.batch or None,) + (None,) * (ndim - 1)
+    return SH.gather_tensor(x, spec, mesh)
+
+
+def _moe_layer(rank, out, shape, cf, B, tag):
+    """`moe_apply` on the mesh: y gathered, lb_loss, router_dropped, and
+    this process's kept mask read through the dispatch it ran."""
+    from repro_torch.models import moe as MOE
+    cfg = serve_cfg(MOE_ARCH, capacity_factor=cf)
+    mesh = _mesh(shape).for_batch((B, LAYER_S))
+    p = {k: v[0] for k, v in _ref_params(out, MOE_ARCH)["layers"]["moe"]
+         .items()}
+    p = shard_tree(p, param_shardings(MOE.moe_specs(cfg), mesh))
+    x = torch.from_numpy(moe_hidden(cfg, B, LAYER_S, 11))
+    x = SH.NamedSharding(mesh, SH.logical_to_pspec(
+        ("batch", "seq", None), x.shape, mesh)).shard(x)
+    calls = []
+    real = MOE._dispatch_combine_local
+
+    def spy(cfg_, x_flat, ids, weights, capacity, ffn, e0=0, n_local=0):
+        calls.append((ids, capacity, e0, n_local))
+        return real(cfg_, x_flat, ids, weights, capacity, ffn, e0, n_local)
+    MOE._dispatch_combine_local = spy
+    try:
+        y, aux = MOE.moe_apply(cfg, p, x, mesh=mesh)
+    finally:
+        MOE._dispatch_combine_local = real
+    (ids, capacity, e0, n_local), = calls
+    keep = kept(lambda xs, w: real(cfg, torch.from_numpy(xs), ids,
+                                   torch.from_numpy(w), capacity,
+                                   lambda b: b, e0, n_local)[0],
+                cfg.top_k, ids.shape[0], cfg.d_model)
+    y = _gather_rows(y, mesh, 3)
+    np.savez(out / f"layer_{tag}_r{rank}.npz", y=y.numpy(), keep=keep,
+             lb=float(aux["lb_loss"]), drop=float(aux["router_dropped"]),
+             capacity=capacity, e0=e0, n_local=n_local,
+             coords=np.array([mesh.index("data"), mesh.index("model")]),
+             expert_parallel=MOE.expert_parallel(cfg, mesh, B))
+
+
+def _moe_grads(rank, out, shape):
+    """OLMoE's loss and gradients on the mesh at the reference's params."""
+    model = get_model(serve_cfg(MOE_ARCH))
+    mesh = _mesh(shape)
+    sh = model.shardings(mesh)
+    leaves = TL._grad_leaves(shard_tree(_ref_params(out, MOE_ARCH), sh))
+    run_mesh = mesh.for_batch((LOSS_B, LOSS_S))
+    batch = shard_batch(lm_batch(model.cfg, LOSS_B, LOSS_S, 3), run_mesh)
+    loss, metrics = TL._backward(model, "none", leaves, batch, run_mesh)
+    _save(rank, out / f"moe_grads_{shape}.npz",
+          gather_tree(TL._grads(leaves), sh),
+          {"loss": float(loss), **_floats(metrics)})
+
+
+def moe_train_cfg():
+    return TrainConfig(seq_len=LOSS_S, global_batch=STEP_B,
+                       microbatch=STEP_MICRO,
+                       optimizer=OptimizerConfig(**opt_kw()))
+
+
+def moe_state0(params):
+    """A train state at `params` with zero moments."""
+    return {"params": params,
+            "opt": {"m": tree_map(torch.zeros_like, params),
+                    "v": tree_map(torch.zeros_like, params)},
+            "step": torch.zeros((), dtype=torch.int32)}
+
+
+def moe_step_batch(cfg, i):
+    return lm_batch(cfg, STEP_B, LOSS_S, 20 + i)
+
+
+def _moe_steps(rank, out, shape):
+    """Three AdamW steps of OLMoE on the mesh from the reference's
+    params; then the state checkpointed and restored onto the other
+    meshes (the expert axis resharded)."""
+    model = get_model(serve_cfg(MOE_ARCH))
+    tcfg = moe_train_cfg()
+    mesh = _mesh(shape)
+    sh = TL.state_shardings(model, tcfg.optimizer, mesh)
+    state = shard_tree(moe_state0(_ref_params(out, MOE_ARCH)), sh)
+    step = TL.make_train_step(model, tcfg, mesh)
+    metrics = []
+    for i in range(N_MOE_STEPS):
+        state, m = step(state, moe_step_batch(model.cfg, i))
+        metrics.append(_floats(m))
+    _save(rank, out / f"moe_steps_{shape}.npz", gather_tree(state, sh),
+          metrics)
+    return state, sh
+
+
+def _moe_reshard(rank, out, state, sh):
+    """The (2, 2) state checkpointed, restored onto (1, 4) and (4, 1)."""
+    model = get_model(serve_cfg(MOE_ARCH))
+    opt = moe_train_cfg().optimizer
+    mgr = CKPT.CheckpointManager(str(out / "moe_ckpt"), keep=1,
+                                 async_save=False)
+    mgr.save(N_MOE_STEPS, state, shardings=sh)
+    dist.barrier()
+    for target in ("1x4", "4x1"):
+        tsh = TL.state_shardings(model, opt, _mesh(target))
+        restored, _ = mgr.restore(TL.abstract_state(model, opt),
+                                  shardings=tsh)
+        _save(rank, out / f"moe_restore_{target}.npz",
+              gather_tree(restored, tsh))
+    dist.barrier()
+
+
+def _serve(rank, out, arch, shape, pad):
+    """Prefill, then DECODE greedy steps on the mesh: each step's logits
+    gathered, the final cache gathered and this process's shard of it."""
+    from repro_torch.launch.collectives import COUNTER
+    model = get_model(serve_cfg(arch))
+    cfg = model.cfg
+    mesh = _mesh(shape).for_batch((SERVE_B, PROMPT))
+    params = model.prepare(shard_tree(_ref_params(out, arch),
+                                      model.shardings(mesh)))
+    toks = torch.from_numpy(prompts(cfg, SERVE_B, PROMPT, 7)).long()
+    lsh = SH.NamedSharding(mesh, SH.logical_to_pspec(
+        ("batch", "tp"), (SERVE_B, cfg.vocab_size), mesh))
+    tsh = SH.NamedSharding(mesh, SH.logical_to_pspec(
+        ("batch",), (SERVE_B,), mesh))
+    COUNTER.reset()
+    with COUNTER.on():
+        logits, cache = model.prefill(params, shard_batch({"tokens": toks},
+                                                          mesh),
+                                      pad_to=pad, mesh=mesh)
+    prefill_records = list(COUNTER.records)
+    steps = [lsh.gather(logits)]
+    for _ in range(DECODE):
+        tok = torch.argmax(steps[-1], -1)
+        logits, cache = model.decode(params, cache, tsh.shard(tok),
+                                     mesh=mesh)
+        steps.append(lsh.gather(logits))
+    csh = model.cache_shardings(SERVE_B, pad, mesh)
+    tag = f"{arch}_{shape}_{pad}"
+    np.savez(out / f"serve_{tag}_r{rank}.npz",
+             k_local=cache["k"].numpy(), v_local=cache["v"].numpy(),
+             coords=np.array([mesh.index("data"), mesh.index("model")]))
+    full = {n: csh[n].gather(cache[n]).numpy() for n in ("k", "v")}
+    if rank == 0:
+        np.savez(out / f"serve_{tag}.npz",
+                 logits=np.stack([s.numpy() for s in steps]), **full)
+        (out / f"serve_{tag}.json").write_text(json.dumps(
+            {"pos": cache["pos"], "prefill_collectives": prefill_records}))
+
+
+def _engine(rank, out, arch, shape):
+    """`ServeEngine(mesh=)`'s greedy tokens."""
+    from repro_torch.serve.engine import ServeEngine
+    model = get_model(serve_cfg(arch))
+    mesh = _mesh(shape)
+    eng = ServeEngine(model, mesh=mesh)
+    eng.params = shard_tree(_ref_params(out, arch), model.shardings(mesh))
+    res = eng.generate(prompts(model.cfg, SERVE_B, PROMPT, 9), ENGINE_NEW)
+    if rank == 0:
+        np.savez(out / f"engine_{arch}_{shape}.npz", tokens=res["tokens"])
+        (out / f"engine_{arch}_{shape}.json").write_text(json.dumps(
+            res["stats"]))
+
+
+def _mesh_serve_job(rank, out, plan):
+    for shape in plan["layer"]:
+        for cf in CFS:
+            _moe_layer(rank, out, shape, cf, LAYER_B, f"{shape}_{cf}")
+    for shape in plan.get("odd", ()):
+        _moe_layer(rank, out, shape, CFS[0], LAYER_B_ODD, f"{shape}_odd")
+    for shape in plan.get("loss", ()):
+        _moe_grads(rank, out, shape)
+        kept_state = _moe_steps(rank, out, shape)
+        if shape == "2x2":
+            _moe_reshard(rank, out, *kept_state)
+    for arch in (SERVE_ARCHS if "engine" in plan else (MOE_ARCH,)):
+        for shape in plan["serve"]:
+            for pad in PADS:
+                _serve(rank, out, arch, shape, pad)
+        for shape in plan.get("engine", ()):
+            _engine(rank, out, arch, shape)
+
+
+def job_moe_four(rank, out):
+    _mesh_serve_job(rank, out, FOUR)
+
+
+def job_moe_two(rank, out):
+    _mesh_serve_job(rank, out, TWO)
+
+
+JOBS = {"four": job_four, "two": job_two, "fault": job_fault,
+        "moe_four": job_moe_four, "moe_two": job_moe_two}
