@@ -178,23 +178,32 @@ raising on failure so the run exits non-zero:
      (`_hold_train_step`), OLMoE's in microbatches of one data shard's
      rows; the first step's collectives counted (wire bytes per device
      by kind, the roofline's collective seconds at NVLink's 450 GB/s a
-     direction); then an ElasticJob of SmolLM on all W cards migrates
-     to the first ceil(W/2) and back, its state bit-equal across each
-     reshard (cuda:0 to cuda:0 with one card);
+     direction); then Mamba-2 (2 of 64 layers, 8 x 1,024 tokens),
+     RecurrentGemma (one superlayer, 3 of 38 layers, 2 x 1,024 tokens)
+     and Whisper-base (whole, 8 clips x 448 tokens) at their published
+     widths in float32 on the same meshes, each step held against the
+     unsharded step on card 0 leaf by leaf on the card, each card's
+     SSD, RG-LRU and flash launches counted per route every step, the
+     peak GB per card; then an ElasticJob of SmolLM on all W cards
+     migrates to the first ceil(W/2) and back, its state bit-equal
+     across each reshard (cuda:0 to cuda:0 with one card);
   10c. mesh_serve: serving sharded over the cards, W processes as in
      10b, on the meshes (W, 1) and, for W >= 2, (1, W) (expert-parallel
-     over every card); phi4-mini-3.8b and olmoe-1b-7b at their published
-     widths and 2 layers in float32: prefill and 8 decode steps on each
-     mesh (the decode cache split over its sequence where the model axis
-     divides it) against the unsharded model on card 0 run on each data
-     shard's prompts alone, every step's logits within 1e-3 and the
-     greedy tokens equal; then both at full width in bf16,
-     `ServeEngine(mesh=)` generating 32 greedy tokens after 4 prompts of
-     2,048: prefill and decode tokens per second, peak GB per card, the
-     wire bytes per device by kind of one prefill and one decode step,
-     the flash launches by route and OLMoE's first-layer
-     router_dropped. With one card both phases run the mesh path on a
-     (1, 1) mesh and issue no collective;
+     over every card); phi4-mini-3.8b, olmoe-1b-7b and mamba2-2.7b at
+     their published widths and 2 layers, recurrentgemma-9b at 4 (its
+     window cut to 128) and whisper-base whole (4 clips of seeded
+     frames), in float32: prefill and 8 decode steps on each mesh (the
+     decode caches split over their slots, Mamba-2's and the RG-LRU's
+     states over heads and channels, where the model axis divides them)
+     against the unsharded model on card 0 run on each data shard's
+     prompts alone, every step's logits within 1e-3 and the greedy
+     tokens equal; then each at full width in bf16 at phase 7's shapes,
+     `ServeEngine(mesh=)` generating 32 greedy tokens: prefill and
+     decode tokens per second (Whisper's frames per second), peak GB
+     per card, the wire bytes per device by kind of one prefill and one
+     decode step, each kernel's launches by route and OLMoE's
+     first-layer router_dropped. With one card both phases run the mesh
+     path on a (1, 1) mesh and issue no collective;
   11. the single-card dry run (`python -m repro_torch.launch.dryrun
      --all`): the 40 cells, 32 run and 8 skipped with the reference's
      reasons; each cell's memory from its abstract trees with
@@ -231,10 +240,13 @@ microbatches: forward, the remat's recompute and the backward) and 16
 flash launches with lse (2 x 4, twice), of Whisper 72 flash launches
 with lse (6 encoder + 12 decoder attentions x 4 microbatches); 30 flash
 launches with lse a step in 10, and a step of SmolLM on each card in
-10b (2 for OLMoE's), on the float32 cuda_core route; in 10c one a layer
-on each card per generate, on the wgmma route) and no others, every flash launch on
+10b (2 for OLMoE's), on the float32 cuda_core route, and of Mamba-2 2
+SSD launches (cuda_core), of RecurrentGemma 4 RG-LRU (ring) and 1
+flash, of Whisper 18 flash; in 10c phase 7's launches per generate on
+each card, on their bf16 routes) and no others, every flash launch on
 the wgmma route (with lse in 9 and 10), every SSD launch on the
-mma_sync route and every RG-LRU launch on the ring route.
+mma_sync route (10b's float32 ones on cuda_core) and every RG-LRU
+launch on the ring route.
 
 Prints the nvidia-smi line, one line of phase results, the training
 line, the roofline table, the dry-run and examples line, the
@@ -1919,15 +1931,17 @@ FAMILY_CROSS = [(TRAIN_ARCH, 2, {}, 512, 2, 2),
 
 
 def _hold_train_step(what, got, gm, want, wm, p0, lr):
-    """A train step's state `got` and metrics `gm` against `want`, `wm`
-    (the same step from the same params `p0`, {path: tensor}): the loss
-    and grad_norm within 1e-3 relative, m and v within 1e-3 of each
-    leaf's max, the params within 1e-3 (allclose), and the updates
-    themselves (params after minus before) within 1e-3 relative plus
-    1e-2 of the learning rate `lr`, save for at most UPDATE_OFF_SHARE of
-    the entries: a gradient within rounding of 0 can flip Adam's first
-    step, of size lr. Prints the leaf with the worst error of m, of v
-    and of the gradients; returns the errors; raises past a bar."""
+    """A train step's state `got` (a tree, or its (path, leaf) pairs)
+    and metrics `gm` against `want`, `wm` (the same step from the same
+    params `p0`, {path: tensor}): the loss and grad_norm within 1e-3
+    relative, m and v within 1e-3 of each leaf's max, the params within
+    1e-3 (allclose), and the updates themselves (params after minus
+    before) within 1e-3 relative plus 1e-2 of the learning rate `lr`,
+    save for at most UPDATE_OFF_SHARE of the entries: a gradient within
+    rounding of 0 can flip Adam's first step, of size lr. A leaf held on
+    the card on both sides is compared there, any other on the CPU.
+    Prints the leaf with the worst error of m, of v and of the
+    gradients; returns the errors; raises past a bar."""
     from repro_torch.models.params import flatten
     errs = {k: abs(float(gm[k]) - float(wm[k])) / abs(float(wm[k]))
             for k in ("loss", "grad_norm")}
@@ -1936,8 +1950,9 @@ def _hold_train_step(what, got, gm, want, wm, p0, lr):
     # the worst leaf of m and of v: (err / max, path); m = (1 - b1) x the
     # clipped gradient on a first step, so m's leaf is the gradients'
     leaf = {"m": (0.0, None), "v": (0.0, None)}
-    for path, t in flatten(got):
-        a, b = t.cpu(), w[path].cpu()
+    for path, t in (flatten(got) if isinstance(got, dict) else got):
+        on = t.device if t.is_cuda and w[path].is_cuda else "cpu"
+        a, b = t.to(on), w[path].to(on)
         if path.startswith("opt/"):
             err = float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
             worst["opt"] = max(worst["opt"], err)
@@ -1946,7 +1961,7 @@ def _hold_train_step(what, got, gm, want, wm, p0, lr):
         elif path.startswith("params/"):
             worst["params"] = max(worst["params"], float(
                 ((a - b).abs() / (1e-3 + 1e-3 * b.abs())).max()))
-            before = p0[path[len("params/"):]].cpu()
+            before = p0[path[len("params/"):]].to(on)
             da, db = a - before, b - before
             flips += int((da.sign() != db.sign()).sum())
             off += int(((da - db).abs() > 1e-3 * db.abs() + 1e-2 * lr).sum())
@@ -2324,11 +2339,133 @@ def _mesh_train_model(rank, world, arch, n_layers):
                                  for k, v in wants.items()}}
 
 
+# arch, depth (None: the published one), seq, global batch: the ssm,
+# hybrid and encdec families at their published widths, f32, their
+# states kept on the cards for the comparison. Mamba-2 at 2 of 64 layers;
+# RecurrentGemma at one superlayer (3 of 38 layers, 1,705,078,784
+# parameters: f32 params, m and v of 27.3 GB, which card 0 holds twice,
+# the sharded state and the unsharded step's) on 2 x 1,024 tokens;
+# Whisper-base whole on 8 clips of 1,500 frames with 448 tokens
+MESH_TRAIN_FAMILIES = [("mamba2-2.7b", 2, 1024, 8),
+                       ("recurrentgemma-9b", 3, 1024, 2),
+                       ("whisper-base", None, 448, 8)]
+
+
+def _gathered_leaves(state, shardings, rank):
+    """(path, whole leaf on the card) of a sharded state, one leaf
+    gathered at a time (a collective over its mesh: every rank runs
+    it), yielded on rank 0 only."""
+    from repro_torch.models.params import flatten
+    sh = dict(flatten(shardings))
+    for path, t in flatten(state):
+        full = sh[path].gather(t)
+        if rank == 0:
+            yield path, full
+        del full
+
+
+def _mesh_train_family(rank, world, arch, n_layers, seq, batch):
+    """`arch` (f32, one microbatch a step): on each mesh MESH_STEPS steps
+    from the seed, after each one the unsharded step of the same state on
+    card 0 and the sharded state held against it leaf by leaf on the
+    card (`_hold_train_step`, the leaves gathered one at a time, no host
+    copy of either state). Each step's kernel launches are counted on
+    every rank and held to one unsharded step's (`_check_launches`: each
+    kernel on local shards once a layer, the RG-LRU twice), the first
+    step's collectives counted; the peak memory of each card."""
+    import torch.distributed as dist
+
+    from repro_torch.config import MeshConfig, OptimizerConfig, TrainConfig
+    from repro_torch.data.pipeline import to_device
+    from repro_torch.launch.collectives import COUNTER
+    from repro_torch.launch.mesh import describe, make_mesh
+    from repro_torch.launch.roofline import collective_seconds
+    from repro_torch.models.params import flatten
+    from repro_torch.train import loop as TL
+    dev = torch.device("cuda", rank)
+    model = _family_model(arch, n_layers, "float32")
+    cfg = model.cfg
+    opt = OptimizerConfig(warmup_steps=0)
+    tcfg = TrainConfig(seq_len=seq, global_batch=batch, optimizer=opt)
+    data = _family_batches(cfg, seq, batch, SEED, torch.float32)
+    batches = [next(data) for _ in range(MESH_STEPS)]
+    plain = TL.make_train_step(model, tcfg)
+    meshes, total = [], dict.fromkeys(_kernel_counters(), 0)
+    for data_n, model_n in _mesh_shapes(world):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        want = p0 = None
+        if rank == 0:
+            want = TL.init_state(model, opt, SEED, dev)
+            p0 = {p: t.clone() for p, t in flatten(want["params"])}
+        mesh = make_mesh(MeshConfig(data=data_n, model=model_n), "cuda")
+        sh = TL.state_shardings(model, opt, mesh)
+        state = TL.init_state(model, opt, SEED, mesh=mesh)
+        step = TL.make_train_step(model, tcfg, mesh)
+        times, held, losses = [], [], []
+        for i, b in enumerate(batches):
+            if rank == 0:
+                want, wm = plain(want, to_device(b, dev))
+                wm = {k: float(v) for k, v in wm.items()}
+            torch.cuda.synchronize()
+            dist.barrier()
+            _zero_counts()
+            t0 = time.perf_counter()
+            if i == 0:
+                COUNTER.reset()
+                with COUNTER.on():
+                    state, m = step(state, b)
+            else:
+                state, m = step(state, b)
+            metrics = {k: float(v) for k, v in m.items()}      # syncs
+            times.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"])
+            launches, routes = _check_launches(
+                f"mesh_train {arch} {data_n}x{model_n} rank {rank}", cfg, 1,
+                "none")
+            for k, c in launches.items():
+                total[k] += world * c
+            leaves = _gathered_leaves(state, sh, rank)
+            if rank == 0:
+                held.append(_hold_train_step(
+                    f"mesh_train {arch} {data_n}x{model_n} step {i + 1} vs "
+                    f"unsharded", leaves, metrics, want, wm, p0, opt.lr))
+                for p, t in flatten(want["params"]):
+                    p0[p].copy_(t)
+            else:
+                for _ in leaves:
+                    pass
+        summary = COUNTER.summary()
+        peaks = _all_ranks(torch.cuda.max_memory_allocated(dev))
+        meshes.append({
+            **describe(mesh), "shape": [data_n, model_n],
+            "step_times_s": times, "step_time_s": times[-1],
+            "losses": losses, "held": held,
+            "launches_per_rank_per_step": {
+                k: {r: c for r, c in routes.get(k, {}).items() if c}
+                or launches[k] for k in launches if launches[k]},
+            "peak_gb_per_card": [p / 1e9 for p in peaks],
+            "wire_bytes_per_device_by_kind": {
+                k: v["wire_bytes"] for k, v in summary["per_kind"].items()},
+            "collective_counts_by_kind": {
+                k: v["count"] for k, v in summary["per_kind"].items()},
+            "total_wire_bytes_per_device": summary["total_wire_bytes"],
+            "collective_s": collective_seconds(summary["total_wire_bytes"],
+                                               mesh.n_devices)})
+        del state, step, want, p0
+        _free_device_memory()
+    return {"arch": arch, "n_layers": cfg.n_layers,
+            "params": model.param_count(), "dtype": "float32",
+            "seq_len": seq, "global_batch": batch, "steps": MESH_STEPS,
+            "meshes": meshes, "launches": total}
+
+
 def _mesh_train_work(rank, world):
-    """Each of MESH_TRAIN on the meshes (`_mesh_train_model`); then an
-    ElasticJob of SmolLM-135M on all cards migrates to the first
-    ceil(W/2) and back, its state gathered before and after each
-    migration and held bit-equal."""
+    """Each of MESH_TRAIN on the meshes (`_mesh_train_model`), then each
+    of MESH_TRAIN_FAMILIES (`_mesh_train_family`); then an ElasticJob of
+    SmolLM-135M on all cards migrates to the first ceil(W/2) and back,
+    its state gathered before and after each migration and held
+    bit-equal."""
     import tempfile
 
     import torch.distributed as dist
@@ -2337,6 +2474,13 @@ def _mesh_train_work(rank, world):
     from repro_torch.core.elastic import ElasticJob
     models = [_mesh_train_model(rank, world, arch, n)
               for arch, n in MESH_TRAIN]
+    families = [_mesh_train_family(rank, world, *f)
+                for f in MESH_TRAIN_FAMILIES]
+    launches = dict.fromkeys(_kernel_counters(), 0)
+    launches["flash_attention"] = sum(m["flash_launches"] for m in models)
+    for f in families:
+        for k, c in f["launches"].items():
+            launches[k] += c
     model = _family_model(TRAIN_ARCH, None, "float32")
     tcfg = TrainConfig(seq_len=MESH_SEQ, global_batch=MESH_BATCH,
                        optimizer=OptimizerConfig(warmup_steps=0))
@@ -2366,10 +2510,9 @@ def _mesh_train_work(rank, world):
                 bit_equal.append(len(target))
         job.train_step(batches[1])
         dist.barrier()
-    return {"world": world, "models": models,
-            "flash_launches": sum(m["flash_launches"] for m in models),
-            "migrations": migrations, "bit_equal_after_migration_to":
-                bit_equal}
+    return {"world": world, "models": models, "families": families,
+            "launches": launches, "migrations": migrations,
+            "bit_equal_after_migration_to": bit_equal}
 
 
 def mesh_train_phase(dev):
@@ -2396,19 +2539,44 @@ def mesh_train_phase(dev):
                   f"direction, a data-sheet figure), vs unsharded in "
                   f"microbatches of {m['unsharded_microbatch']} (bars "
                   f"1e-3): {errs}", flush=True)
+    for r in record["families"]:
+        for m in r["meshes"]:
+            errs = [{k: h[k] for k in ("rel_err", "mv_err_over_max",
+                                       "params_margin", "updates_off_bar")}
+                    for h in m["held"]]
+            print(f"[mesh_train] {r['arch']} ({r['n_layers']} layers, "
+                  f"{r['params']} parameters) f32 at {r['global_batch']} x "
+                  f"{r['seq_len']} tokens a step, mesh {m['axes']}: step "
+                  f"times {m['step_times_s']} s, peak GB per card "
+                  f"{m['peak_gb_per_card']}, launches per rank per step "
+                  f"{m['launches_per_rank_per_step']}, wire bytes per "
+                  f"device per step by kind "
+                  f"{m['wire_bytes_per_device_by_kind']}, vs unsharded on "
+                  f"card 0 (bars 1e-3): {errs}", flush=True)
     if world == 1:
         print("[mesh_train] one card: the (1, 1) mesh runs the mesh path "
               "and issues no collective", flush=True)
     print(f"[mesh_train] migrations {record['migrations']}, bit-equal "
-          f"after each; flash launches {record['flash_launches']}",
-          flush=True)
+          f"after each; kernel launches {record['launches']}", flush=True)
     return record
 
 
-# the served models on a mesh: f32 at 2 layers against the unsharded
-# engine, then bf16 at full width, 4 prompts of 2,048 tokens, 32 new
-MESH_SERVE = ["phi4-mini-3.8b", "olmoe-1b-7b"]
-MESH_CHECK_PROMPT, MESH_CHECK_STEPS = 128, 8
+# the served models on a mesh: f32 at reduced depth against the
+# unsharded model (arch, overrides, prompt length; RecurrentGemma at one
+# superlayer and a trailing block with its window cut to 128, so that it
+# bites in the prefill and the ring wraps; Whisper whole on 4 clips of
+# 1,500 seeded frames), then bf16 at full width at phase 7's shapes
+# (`SERVE_FULL`: 4 prompts of 2,048 tokens; Whisper 8 clips of zero
+# frames with 4-token prompts), 32 new tokens
+MESH_SERVE_CHECK = [("phi4-mini-3.8b", {"n_layers": 2}, 128),
+                    ("olmoe-1b-7b", {"n_layers": 2}, 128),
+                    ("mamba2-2.7b", {"n_layers": 2}, 256),
+                    ("recurrentgemma-9b", {"n_layers": 4,
+                                           "local_window": 128}, 256),
+                    ("whisper-base", {}, 4)]
+MESH_SERVE = ["phi4-mini-3.8b", "olmoe-1b-7b", "mamba2-2.7b",
+              "recurrentgemma-9b", "whisper-base"]
+MESH_CHECK_STEPS = 8
 
 
 def _serve_meshes(world):
@@ -2417,13 +2585,14 @@ def _serve_meshes(world):
     return [(world, 1)] + ([(1, world)] if world >= 2 else [])
 
 
-def _mesh_serve_check(rank, world, arch):
-    """Published widths, 2 layers, f32, TF32 off, batch 4: on each mesh the
-    prefill and MESH_CHECK_STEPS decode steps fed card 0's greedy tokens,
-    every step's gathered logits within 1e-3 (abs and rel) of the
-    unsharded model's on card 0, run on each data shard's prompts alone
-    (an MoE's capacity is per data shard), and their greedy tokens
-    equal."""
+def _mesh_serve_check(rank, world, arch, overrides, S):
+    """Published widths at the depth `overrides` give, f32, TF32 off,
+    batch 4 of `S`-token prompts (an encoder-decoder's with seeded
+    frames): on each mesh the prefill and MESH_CHECK_STEPS decode steps
+    fed card 0's greedy tokens, every step's gathered logits within 1e-3
+    (abs and rel) of the unsharded model's on card 0, run on each data
+    shard's prompts alone (an MoE's capacity is per data shard), and
+    their greedy tokens equal."""
     import torch.distributed as dist
 
     from repro_torch.config import MeshConfig
@@ -2432,12 +2601,16 @@ def _mesh_serve_check(rank, world, arch):
     from repro_torch.models.params import shard_tree
     from repro_torch.models.sharding import NamedSharding, logical_to_pspec
     dev = torch.device("cuda", rank)
-    model = _serving_model(arch, dtype="float32", n_layers=2)
+    model = _serving_model(arch, dtype="float32", **overrides)
     cfg = model.cfg
-    B, S = 4, MESH_CHECK_PROMPT
+    B = 4
     pad = S + MESH_CHECK_STEPS
-    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
-        0, cfg.vocab_size, (B, S)))
+    inputs = {"tokens": torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (B, S)))}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.randn(
+            B, cfg.enc_seq, cfg.d_model,
+            generator=torch.Generator().manual_seed(SEED))
     full = model.init(SEED, device=dev)
     out = []
     for data_n, model_n in _serve_meshes(world):
@@ -2446,8 +2619,9 @@ def _mesh_serve_check(rank, world, arch):
         if rank == 0:         # unsharded, one data shard's prompts at a time
             want = []
             for d in range(data_n):
-                p = prompts[d * rows:(d + 1) * rows].to(dev)
-                lg, cache = model.prefill(full, {"tokens": p}, pad_to=pad)
+                p = {k: v[d * rows:(d + 1) * rows].to(dev)
+                     for k, v in inputs.items()}
+                lg, cache = model.prefill(full, p, pad_to=pad)
                 steps = [lg.cpu()]
                 for _ in range(MESH_CHECK_STEPS):
                     lg, cache = model.decode(full, cache,
@@ -2465,8 +2639,7 @@ def _mesh_serve_check(rank, world, arch):
         lsh = NamedSharding(mesh, logical_to_pspec(("batch", "tp"),
                                                    (B, cfg.vocab_size), mesh))
         tsh = NamedSharding(mesh, logical_to_pspec(("batch",), (B,), mesh))
-        lg, cache = model.prefill(params, shard_batch({"tokens": prompts},
-                                                      mesh),
+        lg, cache = model.prefill(params, shard_batch(inputs, mesh),
                                   pad_to=pad, mesh=mesh)
         got = [lsh.gather(lg).cpu()]
         for i in range(MESH_CHECK_STEPS):
@@ -2488,9 +2661,9 @@ def _mesh_serve_check(rank, world, arch):
                         "greedy_equal": True})
     del full
     _free_device_memory()
-    return {"arch": arch, "n_layers": 2, "dtype": "float32", "batch": B,
-            "prompt_len": S, "decode_steps": MESH_CHECK_STEPS,
-            "meshes": out}
+    return {"arch": arch, **overrides, "n_layers": cfg.n_layers,
+            "dtype": "float32", "batch": B, "prompt_len": S,
+            "decode_steps": MESH_CHECK_STEPS, "meshes": out}
 
 
 def _all_ranks(value):
@@ -2501,13 +2674,14 @@ def _all_ranks(value):
 
 
 def _mesh_serve_full(rank, world, arch):
-    """bf16 at the published widths on each mesh: `ServeEngine(mesh=)`
-    loads seeded weights (each card its shards), a warm-up, then
-    `generate` of SERVE_NEW_TOKENS greedy tokens after 4 prompts of
-    SERVE_PROMPT tokens with every kernel's count zeroed before and read
-    after (one flash launch a layer on each card, on the wgmma route);
-    then one prefill and one decode step with the collectives counted,
-    and an MoE's first-layer router_dropped."""
+    """bf16 at the published widths on each mesh, at phase 7's shapes
+    (`SERVE_FULL`): `ServeEngine(mesh=)` loads seeded weights (each card
+    its shards), a warm-up, then `generate` of SERVE_NEW_TOKENS greedy
+    tokens with every kernel's count zeroed before and read after (each
+    card launches phase 7's kernels once a layer of the prefill, on the
+    local shards, on `MAIN_ROUTES`); then one prefill and one decode
+    step with the collectives counted, and an MoE's first-layer
+    router_dropped."""
     from repro_torch.config import MeshConfig
     from repro_torch.launch.collectives import COUNTER
     from repro_torch.launch.mesh import make_mesh
@@ -2517,28 +2691,29 @@ def _mesh_serve_full(rank, world, arch):
     dev = torch.device("cuda", rank)
     model = _serving_model(arch)
     cfg = model.cfg
-    B, S = 4, SERVE_PROMPT
+    _, B, S, warmup, expected = {a: rest for a, *rest in SERVE_FULL}[arch]
     prompts = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, S))
-    out = []
+    out, total = [], dict.fromkeys(_kernel_counters(), 0)
     for data_n, model_n in _serve_meshes(world):
         mesh = make_mesh(MeshConfig(data=data_n, model=model_n), "cuda")
         engine = ServeEngine(model, mesh=mesh).load(SEED)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)        # serving, not init
-        engine.generate(prompts[:, :128], 2)            # warm-up
+        engine.generate(prompts[:, :warmup], 2)         # warm-up
         engine.stats = dict.fromkeys(engine.stats, 0)
         _zero_counts()
         res = engine.generate(prompts, SERVE_NEW_TOKENS)
         torch.cuda.synchronize()
         launches, routes = _read_counts(), _read_routes()
-        want = {n: (cfg.n_layers if n == "flash_attention" else 0)
-                for n in launches}
-        if launches != want or routes["flash_attention"].get(
-                "wgmma", 0) != cfg.n_layers:
+        want = {n: expected.get(n, 0) for n in launches}
+        if launches != want or any(routes[n].get(r, 0) != want[n]
+                                   for n, r in MAIN_ROUTES.items()):
             raise AssertionError(f"mesh_serve {arch} {data_n}x{model_n} "
                                  f"rank {rank}: launches {launches} on "
-                                 f"{routes['flash_attention']}, expected "
-                                 f"{cfg.n_layers} flash on wgmma")
+                                 f"{routes}, expected {want} on "
+                                 f"{MAIN_ROUTES}")
+        for n, c in launches.items():
+            total[n] += world * c
         toks = res["tokens"]
         if toks.shape != (B, SERVE_NEW_TOKENS) or toks.min() < 0 or (
                 toks.max() >= cfg.vocab_size):
@@ -2567,13 +2742,16 @@ def _mesh_serve_full(rank, world, arch):
                "prefill_s": res["stats"]["prefill_s"],
                "decode_s": res["stats"]["decode_s"],
                "peak_gb_per_card": [p / 1e9 for p in peaks],
-               "flash_launches_per_card": launches["flash_attention"],
-               "flash_routes": {r: c for r, c in
-                                routes["flash_attention"].items() if c},
+               "launches_per_card": {
+                   n: {r: c for r, c in routes.get(n, {}).items() if c}
+                   or c for n, c in launches.items() if c},
                "wire_bytes_per_device_by_kind": {
                    k: {kind: v["wire_bytes"] for kind, v in
                        w["per_kind"].items()} for k, w in wire.items()},
                "tokens_head": toks[:, :8].tolist()}
+        if cfg.family == "encdec":
+            rec["enc_frames_per_s"] = (B * cfg.enc_seq
+                                       / res["stats"]["prefill_s"])
         if cfg.family == "moe":
             lay, _, lspecs, _, x, _ = T._serve_setup(
                 cfg, params, batch["tokens"], S, run_mesh)
@@ -2587,16 +2765,18 @@ def _mesh_serve_full(rank, world, arch):
         _free_device_memory()
     return {"arch": arch, "params": model.param_count(), "dtype": cfg.dtype,
             "batch": B, "prompt_len": S, "new_tokens": SERVE_NEW_TOKENS,
-            "meshes": out}
+            "meshes": out, "launches": total}
 
 
 def _mesh_serve_work(rank, world):
-    checks = [_mesh_serve_check(rank, world, a) for a in MESH_SERVE]
+    checks = [_mesh_serve_check(rank, world, *c) for c in MESH_SERVE_CHECK]
     full = [_mesh_serve_full(rank, world, a) for a in MESH_SERVE]
+    launches = dict.fromkeys(_kernel_counters(), 0)
+    for r in full:
+        for n, c in r["launches"].items():
+            launches[n] += c
     return {"world": world, "cross_check": checks, "full_width": full,
-            "flash_launches": world * sum(
-                m["flash_launches_per_card"] for r in full
-                for m in r["meshes"])}
+            "launches": launches}
 
 
 def mesh_serve_phase(dev):
@@ -2609,7 +2789,7 @@ def mesh_serve_phase(dev):
     record = _spawn_mesh("mesh_serve", _mesh_serve_work)
     world = record["world"]
     for r in record["cross_check"]:
-        print(f"[mesh_serve] {r['arch']} f32 2 layers, prefill + "
+        print(f"[mesh_serve] {r['arch']} f32 {r['n_layers']} layers, prefill + "
               f"{r['decode_steps']} decode steps vs the unsharded engine on "
               f"card 0 (bars 1e-3, greedy tokens equal): "
               f"{json.dumps(r['meshes'])}", flush=True)
@@ -3250,10 +3430,8 @@ def main():
                f"carbon_serve_{CARBON_SERVE_ARCH}": cserve["launches"],
                **{f"train_{r['arch']}": r["launches"] for r in train},
                "carbon_trainer": trainer["launches"],
-               "mesh_train": {**dict.fromkeys(_kernel_counters(), 0),
-                              "flash_attention": mesh_train["flash_launches"]},
-               "mesh_serve": {**dict.fromkeys(_kernel_counters(), 0),
-                              "flash_attention": mesh_serve["flash_launches"]},
+               "mesh_train": mesh_train["launches"],
+               "mesh_serve": mesh_serve["launches"],
                "dryrun": dry["launches"], "examples": examples["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in

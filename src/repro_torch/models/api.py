@@ -9,12 +9,14 @@ five families: dense and MoE (`transformer`), ssm (Mamba-2), hybrid
     logits, cache = m.decode(params, cache, tokens)
 
 An encdec prefill and loss also take ``batch["frames"]`` (B, enc_seq,
-d_model). `loss` (training) works for all five families; on a mesh
-(``mesh=``, local shards of the parameters and of the batch), and
-`prefill` and `decode` on a mesh, for the dense and MoE families.
-`pspecs`, `shardings`, `cache_pspecs`, `cache_shardings` and
-`input_pspecs` lay the parameters, the decode caches and the inputs out
-on a mesh by the logical-axis rules (`repro_torch.models.sharding`).
+d_model). `loss`, `prefill` and `decode` work for all five families,
+on one device or on a mesh (``mesh=``: local shards of the parameters,
+of the batch and of the cache; each family's ``_mesh_*`` functions run
+the reference's GSPMD layouts with explicit collectives, their shared
+pieces in `repro_torch.models.mesh_layers`). `pspecs`, `shardings`,
+`cache_pspecs`, `cache_shardings` and `input_pspecs` lay the
+parameters, the decode caches and the inputs out on a mesh by the
+logical-axis rules (`repro_torch.models.sharding`).
 """
 from __future__ import annotations
 
@@ -76,33 +78,23 @@ class Model:
         and the loss is its share: the losses of the processes that hold
         distinct batch rows add up to the global loss."""
         return self.mod.loss_fn(self.cfg, params, batch, remat=remat,
-                                **self._on_mesh(mesh, "training"))
+                                mesh=mesh)
 
     def prefill(self, params, batch, pad_to: int = 0, mesh=None):
         """(last-position logits, cache). On a mesh
         (`sharding.Mesh.for_batch` of the global prompts), `params` and
-        `batch` are this process's shards; so are the logits, laid out
-        ("batch", "tp"), and the cache (`cache_pspecs`)."""
+        `batch` (an encdec's frames too) are this process's shards; so
+        are the logits, laid out ("batch", "tp"), and the cache
+        (`cache_pspecs`; a KV cache also carries its global slot count
+        ``max_seq``, which its local shape does not tell)."""
         return self.mod.prefill(self.cfg, params, batch, pad_to=pad_to,
-                                **self._on_mesh(mesh, "serving"))
+                                mesh=mesh)
 
     def decode(self, params, cache, tokens, mesh=None):
         """(logits, cache) of one step; on a mesh, local shards as in
         `prefill` (the mesh `prefill` was given)."""
         return self.mod.decode_step(self.cfg, params, cache, tokens,
-                                    **self._on_mesh(mesh, "serving"))
-
-    def _on_mesh(self, mesh, what: str) -> dict:
-        """The family function's ``mesh`` argument: none without a mesh;
-        on a mesh, for the families ported there."""
-        if mesh is None:
-            return {}
-        if self.cfg.family not in (DENSE, MOE):
-            raise NotImplementedError(
-                f"{what} the {self.cfg.family} family on a mesh is not "
-                f"ported yet (ROADMAP item 16(c)); the dense and MoE "
-                f"families are")
-        return {"mesh": mesh}
+                                    mesh=mesh)
 
     # -- caches --------------------------------------------------------------
     def cache_specs(self, batch: int, max_seq: int):

@@ -21,16 +21,30 @@ the card, and so do the training loss's (`loss_fn`, under grad through
 path. The decode step writes the new key and value into the
 self-attention cache in place; the cross-attention cache is written
 once, by the prefill.
+
+On a mesh (``mesh=``; `repro_torch.models.mesh_layers`) the frames
+split by rows only; the encoder's layers and the decoder's self- and
+cross-attention run on the local heads and its MLPs on the local d_ff
+where the model axis divides them (the layer norms' scales and biases
+replicated); the memory's gradient is summed over the heads' axes. The
+self-attention cache and the cross-attention cache both split their
+slots over the model axis ("kv_seq"): a decode step's cross-attention
+is the non-causal split attention over the encoder's positions.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mesh_layers as ML
 from repro_torch.models import transformer as T
 from repro_torch.models.cache import encdec_cache_specs
-from repro_torch.models.params import DTYPES, ParamSpec, stack_specs
+from repro_torch.models.params import (DTYPES, ParamSpec, flatten,
+                                      param_pspecs, stack_specs)
+from repro_torch.models.sharding import spec_axes
 
 
 def enc_layer_specs(cfg: ModelConfig) -> dict:
@@ -120,29 +134,35 @@ def _cross_attend(cfg: ModelConfig, bp: dict, x, memory=None,
     return x + L.output_project(cfg, {"wo": p["wo"]}, o), (k, v)
 
 
+def _positions(cfg: ModelConfig, S: int, offset: int, device):
+    """The decoder's sinusoidal positions (1, S, d) in the activation
+    dtype: of a prompt (``offset`` 0, S > 1), or of one decode step."""
+    dtype = DTYPES[cfg.dtype]
+    if offset == 0 and S > 1:
+        return L.sinusoidal_positions(S, cfg.d_model, device).to(dtype)[None]
+    # decode: the row of position `offset`, by the reference's own
+    # expression (the offset times the frequencies)
+    freqs = L.sinusoidal_frequencies(cfg.d_model, device)
+    ang = torch.tensor(float(offset), dtype=torch.float32,
+                       device=device) * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None].to(dtype)
+
+
 def _decoder_embed(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                    offset: int = 0) -> torch.Tensor:
-    B, S = tokens.shape
-    dtype = DTYPES[cfg.dtype]
     x = T.embed_tokens(cfg, params, tokens)
-    if offset == 0 and S > 1:
-        pos = L.sinusoidal_positions(S, cfg.d_model, x.device).to(dtype)[None]
-    else:
-        # decode: the row of position `offset`, by the reference's own
-        # expression (the offset times the frequencies)
-        freqs = L.sinusoidal_frequencies(cfg.d_model, x.device)
-        ang = torch.tensor(float(offset), dtype=torch.float32,
-                           device=x.device) * freqs
-        pos = torch.cat([torch.sin(ang), torch.cos(ang)])[None, None].to(dtype)
-    return x + pos
+    return x + _positions(cfg, tokens.shape[1], offset, x.device)
 
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
-            remat: str = "none") -> tuple:
+            remat: str = "none", mesh=None) -> tuple:
     """(loss, {"ce_loss"}): encode ``batch["frames"]``, run the decoder
     over ``batch["tokens"]`` (causal self-attention, cross-attention to
     the encoder's memory), each layer of both under the `remat` policy;
-    the chunked cross-entropy against ``batch["labels"]``."""
+    the chunked cross-entropy against ``batch["labels"]``. On a mesh
+    this process's share of the loss (`_mesh_loss`)."""
+    if mesh is not None:
+        return _mesh_loss(cfg, params, batch, remat, mesh)
     memory = encode(cfg, params, batch["frames"], remat=remat)
     tokens = batch["tokens"]
     x = _decoder_embed(cfg, params, tokens)
@@ -168,10 +188,13 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict,
-            pad_to: int = 0) -> tuple:
+            pad_to: int = 0, mesh=None) -> tuple:
     """Encode ``batch["frames"]`` and process the prompts
     ``batch["tokens"]``; return (last-position logits (B, V), cache).
-    ``pad_to``: the self-attention cache's capacity (>= S)."""
+    ``pad_to``: the self-attention cache's capacity (>= S). On a mesh,
+    this process's shards in and out (`_mesh_prefill`)."""
+    if mesh is not None:
+        return _mesh_prefill(cfg, params, batch, pad_to, mesh)
     memory = encode(cfg, params, batch["frames"])
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -203,9 +226,12 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict,
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor) -> tuple:
+                tokens: torch.Tensor, mesh=None) -> tuple:
     """One decode step. tokens (B,); returns (logits (B, V), cache) with
-    the new key and value written at slot ``pos`` in place."""
+    the new key and value written at slot ``pos`` in place. On a mesh,
+    this process's shards in and out (`_mesh_decode`)."""
+    if mesh is not None:
+        return _mesh_decode(cfg, params, cache, tokens, mesh)
     pos = int(cache["pos"])
     ck, cv = cache["k"], cache["v"]
     if pos >= ck.shape[3]:
@@ -234,3 +260,201 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
 
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     return encdec_cache_specs(cfg, batch, max_seq)
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+def _non_causal(cfg: ModelConfig):
+    return lambda q, k, v: L.attention(q, k, v, causal=False,
+                                       impl=cfg.attn_impl)
+
+
+def _mesh_encode(cfg: ModelConfig, params: dict, pspecs: dict, frames,
+                 B: int, mesh, remat: str = "none") -> tuple:
+    """`encode` on local shards: this process's rows of the frames (the
+    sequence whole, ("batch", "seq", None)) -> (the encoder's layout,
+    its memory). Each layer's attention runs on the local heads (the
+    flash kernel on the card), its MLP on the local d_ff."""
+    lay = ML.Layout(cfg, mesh, B, frames.shape[1], res=ML.FULL)
+    especs = ML.stack_pspecs(pspecs, "enc_layers")
+    pos = L.sinusoidal_positions(frames.shape[1], cfg.d_model,
+                                 frames.device).to(DTYPES[cfg.dtype])
+    x = frames.to(DTYPES[cfg.dtype]) + pos[None]
+
+    def body(x, lp):
+        lp = dict(flatten(lp))
+        x = ML.attention_block(cfg, lay, especs, x, lp, None,
+                               _non_causal(cfg))
+        return ML.mlp_block(cfg, lay, especs, x, lp)
+
+    step = T.maybe_remat(body, remat)
+    for lp in T.unbind_layers(params["enc_layers"], cfg.n_enc_layers):
+        x = step(x, lp)
+    norm = {k: lay.weight(t, pspecs["enc_norm"][k])
+            for k, t in params["enc_norm"].items()}
+    return lay, L.apply_norm(x, norm, cfg.norm_eps)
+
+
+def _mesh_cross(cfg: ModelConfig, lay: ML.Layout, specs: dict, x, lp,
+                memory=None, attn_fn=None) -> tuple:
+    """`_cross_attend` on local shards, x in the residual layout: q from
+    x on the local heads; keys and values from the encoder memory (whole
+    over the model axis) on the local heads, or `attn_fn(q)` over the
+    cache. Returns (x, (k, v) of the local heads or None)."""
+    w = lay.layer_weights(lp, specs)
+    h = lay.norm(x, lp, specs, "lnx", partial=lay.sp)
+    h = lay.to(h, ML.FULL, lay.res, grad_partial=lay.heads)
+    dtype = h.dtype
+    B, Sq = h.shape[0], h.shape[1]
+    q = (h @ w("xattn/wq", keep=lay.heads).to(dtype)).reshape(
+        B, Sq, lay.n_heads, cfg.head_dim)
+    kv = None
+    if memory is not None:
+        shape = (B, memory.shape[1], lay.n_kv_heads, cfg.head_dim)
+        kv = tuple((memory @ w(f"xattn/{n}", keep=lay.heads).to(dtype))
+                   .reshape(shape) for n in ("wk", "wv"))
+        o = L.attention(q, *kv, causal=False, impl=cfg.attn_impl)
+    else:
+        o = attn_fn(q)
+    y = L.output_project(lay.local_cfg(),
+                         {"wo": w("xattn/wo", keep=lay.heads)}, o)
+    return x + lay.to(y, lay.res, ML.FULL, partial=lay.heads), kv
+
+
+def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
+               mesh) -> tuple:
+    """`loss_fn` on local shards: this process's share of the loss, the
+    global ce_loss as the metric. The memory's gradient, a partial sum
+    over the heads' axes (each process's cross-attention keys and values
+    of its heads), is summed there."""
+    tokens = batch["tokens"]
+    B_local, S = tokens.shape
+    B = B_local * math.prod(mesh.size(a) for a in mesh.batch)
+    pspecs = param_pspecs(specs(cfg), mesh)
+    lay = ML.Layout(cfg, mesh, B, S)
+    elay, memory = _mesh_encode(cfg, params, pspecs, batch["frames"], B,
+                                mesh, remat)
+    memory = elay.to(memory, ML.FULL, ML.FULL, grad_partial=lay.heads)
+    table = ML.embed_table(lay, params, pspecs)
+    x = ML.embed(cfg, lay, table, tokens)
+    x = x + lay.seq_chunk(_positions(cfg, S, 0, x.device)[0])[None]
+    positions = torch.arange(S, device=x.device)
+    dspecs = ML.stack_pspecs(pspecs, "dec_layers")
+
+    def body(x, lp, memory):
+        lp = dict(flatten(lp))
+        x = ML.attention_block(cfg, lay, dspecs, x, lp, positions)
+        x, _ = _mesh_cross(cfg, lay, dspecs, x, lp, memory=memory)
+        return ML.mlp_block(cfg, lay, dspecs, x, lp)
+
+    step = T.maybe_remat(body, remat)
+    for lp in T.unbind_layers(params["dec_layers"], cfg.n_layers):
+        x = step(x, lp, memory)
+    share, ce = ML.loss_head(cfg, lay, params, pspecs, table, x,
+                             batch["labels"])
+    return share, {"ce_loss": ce}
+
+
+def _cache_chunks(cfg: ModelConfig, mesh, B: int, cap: int) -> tuple:
+    """`mesh_layers.cache_chunk` of the self-attention cache's ``cap``
+    slots and of the cross-attention cache's ``enc_seq`` (both
+    "kv_seq")."""
+    specs = encdec_cache_specs(cfg, B, cap)
+    return tuple(ML.cache_chunk(specs[n], 3, mesh) for n in ("k", "ck"))
+
+
+def _mesh_prefill(cfg: ModelConfig, params: dict, batch: dict, pad_to: int,
+                  mesh) -> tuple:
+    """`prefill` on local shards: this process's rows of the frames and
+    prompts in, its logits (rows, vocabulary) and cache shard out: of
+    each layer's keys and values (gathered over the heads) the chunk of
+    the self-attention cache's slots and of the encoder's positions it
+    holds."""
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    lay, pspecs, table, x, B = ML.serve_setup(cfg, specs(cfg), params,
+                                              tokens, S, mesh)
+    x = x + _positions(cfg, S, 0, x.device)
+    _, memory = _mesh_encode(cfg, params, pspecs, batch["frames"], B, mesh)
+    cap = max(pad_to, S)
+    (_, start, n), (_, e0, ne) = _cache_chunks(cfg, mesh, B, cap)
+    lo, hi = min(start, S), min(start + n, S)       # prompt slots held here
+    Lyr, Hkv, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    new = dict(dtype=x.dtype, device=x.device)
+    ck = torch.zeros((Lyr, x.shape[0], Hkv, n, Dh), **new)
+    cv = torch.zeros_like(ck)
+    cxk = torch.empty((Lyr, x.shape[0], Hkv, ne, Dh), **new)
+    cxv = torch.empty_like(cxk)
+    positions = torch.arange(S, device=x.device)
+    dspecs = ML.stack_pspecs(pspecs, "dec_layers")
+    for i in range(Lyr):
+        lp = dict(flatten(T.layer(params["dec_layers"], i)))
+
+        def attn_fn(q, k, v, i=i):
+            for c, t in ((ck, k), (cv, v)):
+                c[i, :, :, lo - start:hi - start] = lay.whole_heads(
+                    t)[:, lo:hi].transpose(1, 2)
+            return L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
+        x = ML.attention_block(cfg, lay, dspecs, x, lp, positions, attn_fn)
+        x, (xk, xv) = _mesh_cross(cfg, lay, dspecs, x, lp, memory=memory)
+        cxk[i] = lay.whole_heads(xk)[:, e0:e0 + ne].transpose(1, 2)
+        cxv[i] = lay.whole_heads(xv)[:, e0:e0 + ne].transpose(1, 2)
+        x = ML.mlp_block(cfg, lay, dspecs, x, lp)
+    logits = ML.last_logits(cfg, lay, params, pspecs, table, x)
+    return logits, {"k": ck, "v": cv, "ck": cxk, "cv": cxv, "pos": S,
+                    "max_seq": cap}
+
+
+def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict, tokens,
+                 mesh) -> tuple:
+    """`decode_step` on local shards: this process's rows of the tokens
+    in, its logits (rows, vocabulary) out. The process that holds slot
+    ``pos`` writes the new key and value; the self-attention and the
+    cross-attention run over the local slots, split over the model axis
+    (flash-decoding; non-causal over the encoder's positions) where the
+    slots are."""
+    pos, cap = int(cache["pos"]), int(cache["max_seq"])
+    ck, cv = cache["k"], cache["v"]
+    if pos >= cap:
+        raise IndexError(f"the cache is full ({cap} slots); prefill with a "
+                         f"larger pad_to")
+    lay, pspecs, table, x, B = ML.serve_setup(cfg, specs(cfg), params,
+                                              tokens[:, None], 1, mesh)
+    x = x + _positions(cfg, 1, pos, x.device)
+    (entry, start, n), (xentry, _, ne) = _cache_chunks(cfg, mesh, B, cap)
+    kv_pos = torch.arange(start, start + n, device=x.device)
+    dspecs = ML.stack_pspecs(pspecs, "dec_layers")
+    for i in range(cfg.n_layers):
+        lp = dict(flatten(T.layer(params["dec_layers"], i)))
+
+        def attn_fn(q, k, v, i=i):
+            q, k, v = (lay.whole_heads(t) for t in (q, k, v))
+            if start <= pos < start + n:
+                ck[i, :, :, pos - start] = k[:, 0]
+                cv[i, :, :, pos - start] = v[:, 0]
+            if n < cap:
+                o = ML.split_decode_attention(q, ck[i], cv[i], mesh,
+                                              spec_axes(entry), kv_pos, pos)
+            else:
+                o = L.attention(q, ck[i].transpose(1, 2),
+                                cv[i].transpose(1, 2), causal=True,
+                                q_offset=pos, kv_len=pos + 1)
+            return lay.local_heads(o)
+
+        def cross_fn(q, i=i):
+            q = lay.whole_heads(q)
+            cxk, cxv = cache["ck"][i], cache["cv"][i]
+            if ne < cfg.enc_seq:
+                o = ML.split_decode_attention(q, cxk, cxv, mesh,
+                                              spec_axes(xentry))
+            else:
+                o = L.attention(q, cxk.transpose(1, 2), cxv.transpose(1, 2),
+                                causal=False, impl=cfg.attn_impl)
+            return lay.local_heads(o)
+        x = ML.attention_block(cfg, lay, dspecs, x, lp, None, attn_fn)
+        x, _ = _mesh_cross(cfg, lay, dspecs, x, lp, attn_fn=cross_fn)
+        x = ML.mlp_block(cfg, lay, dspecs, x, lp)
+    logits = ML.last_logits(cfg, lay, params, pspecs, table, x)
+    return logits, {**cache, "pos": pos + 1}

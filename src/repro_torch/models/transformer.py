@@ -35,7 +35,10 @@ resident.
 On a mesh (`loss_fn`, `prefill` and `decode_step` with ``mesh=``) each
 process holds its shard of every parameter (`Model.shardings`) and of
 the batch, and runs the reference's GSPMD layouts by hand
-(`repro_torch.models.sharding`), at the reference's `constrain` points:
+(`repro_torch.models.sharding`; the blocks, the embedding, the loss and
+the split decode attention that the other families share are in
+`repro_torch.models.mesh_layers`), at the reference's `constrain`
+points:
 
 - weights are gathered over the data axis where they are used (FSDP;
   their gradients reduce-scattered back) and stay split over the model
@@ -71,7 +74,6 @@ which its local shape does not tell.
 """
 from __future__ import annotations
 
-import dataclasses
 import functools
 import math
 
@@ -79,15 +81,13 @@ import torch
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.config import MOE, ModelConfig
-from repro_torch.kernels.ref import NEG_INF
 from repro_torch.models import layers as L
+from repro_torch.models import mesh_layers as ML
 from repro_torch.models import moe as MOE_MOD
 from repro_torch.models.cache import kv_cache_specs
 from repro_torch.models.params import (DTYPES, ParamSpec, flatten,
                                       param_pspecs, stack_specs, tree_map)
-from repro_torch.models.sharding import (all_reduce, constrain,
-                                         logical_to_pspec, redistribute,
-                                         shard_range, spec_axes, use_weight)
+from repro_torch.models.sharding import spec_axes
 
 
 # ---------------------------------------------------------------------------
@@ -289,145 +289,24 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict,
 # Train forward + loss on a mesh
 # ---------------------------------------------------------------------------
 
-_FULL = ("batch", "seq", None)      # a layer's input, its sequence whole
-
-
-class _Layout:
-    """The model's layouts on a mesh for a global (B, S) batch, from the
-    reference's `constrain` points: the residual stream's logical axes
-    (`res`: `L.residual_axes` in training, whole in serving; `sp` the
-    axes that split its sequence) and the mesh axes that split the heads
-    (q and k, ("batch", "seq", "tp", None)), d_ff and the vocabulary
-    (("batch", "seq", "tp")) where the layer runs tensor-parallel, each
-    empty where the rules drop them."""
-
-    def __init__(self, cfg: ModelConfig, mesh, B: int, S: int, res=None):
-        d = cfg.d_model
-        tp = lambda n: spec_axes(mesh.pspec(  # noqa: E731
-            ("batch", "seq", "tp"), (B, S, n))[2])
-        q = spec_axes(mesh.pspec(("batch", "seq", "tp", None),
-                                 (B, S, cfg.n_heads, cfg.head_dim))[2])
-        k = spec_axes(mesh.pspec(("batch", "seq", "tp", None),
-                                 (B, S, cfg.n_kv_heads, cfg.head_dim))[2])
-        self.mesh, self.shape = mesh, (B, S, d)
-        self.res = res or L.residual_axes(cfg)
-        self.sp = spec_axes(mesh.pspec(self.res, self.shape)[1])
-        self.heads = q if q == k else ()
-        self.ff = tp(cfg.d_ff)
-        self.vocab = tp(cfg.vocab_size)
-        self.n_heads = cfg.n_heads // self.shards(self.heads)
-        self.n_kv_heads = cfg.n_kv_heads // self.shards(self.heads)
-
-    def shards(self, axes) -> int:
-        n = 1
-        for a in axes:
-            n *= self.mesh.size(a)
-        return n
-
-    def to(self, x, logical, src, partial=(), grad_partial=()):
-        """`constrain` of a (B, S, d) tensor from layout `src`."""
-        return constrain(x, logical, self.mesh, src=src, shape=self.shape,
-                         partial=partial, grad_partial=grad_partial)
-
-    def weight(self, t, spec, keep=(), partial=(), dtype=None):
-        """A weight as the layer uses it: gathered over every axis of its
-        storage spec but `keep`, cast to `dtype`; its gradient summed
-        over the axes whose processes hold distinct data (the batch
-        axes and `partial`)."""
-        return use_weight(t, spec, self.mesh, keep,
-                          self.mesh.batch + tuple(partial), dtype)
-
-    def whole_heads(self, t):
-        """(B, S, H_local, Dh) on the local heads -> every head."""
-        return redistribute(t, (None, None, self.heads or None, None),
-                            (None,) * 4, self.mesh)
-
-    def local_heads(self, t):
-        """(B, S, H, Dh) -> this process's heads."""
-        return redistribute(t, (None,) * 4,
-                            (None, None, self.heads or None, None), self.mesh)
-
-
-def _mesh_layer(cfg: ModelConfig, lay: _Layout, specs: dict, x, lp,
+def _mesh_layer(cfg: ModelConfig, lay: ML.Layout, specs: dict, x, lp,
                 positions, attn_fn=None):
     """One layer on local shards; x in the residual layout. `attn_fn(q,
     k, v)` (on the local heads; default causal attention) returns the
     attention's output on the local heads. Returns (x, the feed-forward
     block's aux)."""
-    dtype = DTYPES[cfg.dtype] if cfg.cast_weights else None
-    w = lambda path, keep=(), partial=(): lay.weight(  # noqa: E731
-        lp[path], specs[path], keep, partial, dtype)
-    local = dataclasses.replace(cfg, n_heads=lay.n_heads,
-                                n_kv_heads=lay.n_kv_heads)
-    h = L.apply_norm(x, {"scale": w("ln1/scale", partial=lay.sp)},
-                     cfg.norm_eps)
-    h = lay.to(h, _FULL, lay.res, grad_partial=lay.heads)
-    attn = {k: w(f"attn/{k}", keep=lay.heads) for k in ("wq", "wk", "wv",
-                                                         "wo")}
-    if cfg.qk_norm:
-        for k in ("qnorm", "knorm"):
-            attn[k] = w(f"attn/{k}", partial=lay.heads)
-    q, k, v = L.qkv_project(local, attn, h, positions)
-    if attn_fn is None:
-        o = L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
-    else:
-        o = attn_fn(q, k, v)
-    y = L.output_project(local, attn, o)
-    x = x + lay.to(y, lay.res, _FULL, partial=lay.heads)
-    h = L.apply_norm(x, {"scale": w("ln2/scale", partial=lay.sp)},
-                     cfg.norm_eps)
-    if cfg.family == MOE:
-        # the expert-parallel path's x gradient is a partial sum over the
-        # model axis (each shard's experts); the fallback's is whole
-        ep = MOE_MOD.expert_parallel(cfg, lay.mesh, lay.shape[0])
-        h = lay.to(h, _FULL, lay.res, grad_partial=("model",) if ep else ())
-        y, aux = MOE_MOD.moe_apply(
-            cfg, {k: lp[f"moe/{k}"] for k in MOE_MOD.moe_specs(cfg)}, h,
-            mesh=lay.mesh)
-        return x + lay.to(y, lay.res, _FULL), aux
-    h = lay.to(h, _FULL, lay.res, grad_partial=lay.ff)
-    mlp = {k: w(f"mlp/{k}", keep=lay.ff) for k in L.mlp_specs(cfg)}
-    y = L.mlp(h, mlp, cfg.mlp_variant, DTYPES[cfg.dtype])
-    return x + lay.to(y, lay.res, _FULL, partial=lay.ff), {}
-
-
-def _embed_mesh(cfg: ModelConfig, lay: _Layout, table, tokens):
-    """The embedding lookup in the residual layout; with a vocabulary
-    split over the model axis, each process looks up its rows and the
-    rows are summed (Megatron's vocabulary-parallel embedding)."""
-    dtype = DTYPES[cfg.dtype]
-    tok = tokens.long()
-    if not lay.vocab:
-        x = table[tok].to(dtype)
-        return lay.to(x, lay.res, _FULL)
-    n = table.shape[0]
-    idx = tok - lay.mesh.index(lay.vocab[0]) * n
-    mine = (idx >= 0) & (idx < n)
-    x = torch.where(mine[..., None], table[idx.clamp(0, n - 1)],
-                    0.0).to(dtype)
-    return lay.to(x, lay.res, _FULL, partial=lay.vocab)
-
-
-def _ce_block_mesh(cfg: ModelConfig, lay: _Layout, head: dict, xs, ls):
-    """`_ce_block` with the logits split over the vocabulary axis: the
-    log-sum-exp and the label's logit summed over it."""
-    if not lay.vocab:
-        return _ce_block(cfg, head, xs, ls)
-    m, axes = lay.mesh, lay.vocab
-    logits = unembed(cfg, head, xs).float()
-    n = logits.shape[-1]
-    mx = logits.detach().amax(-1)
-    for a in axes:
-        mx = all_reduce(mx, m, a, torch.distributed.ReduceOp.MAX)
-    total = redistribute(torch.exp(logits - mx[..., None]).sum(-1), (), (),
-                         m, partial=axes)
-    lse = mx + torch.log(total)
-    idx = ls.long() - m.index(axes[0]) * n
-    mine = (idx >= 0) & (idx < n)
-    ll = torch.gather(logits, -1, idx.clamp(0, n - 1)[..., None])[..., 0]
-    ll = redistribute(torch.where(mine, ll, 0.0), (), (), m, partial=axes)
-    valid = (ls >= 0).float()
-    return ((lse - ll) * valid).sum(), valid.sum()
+    x = ML.attention_block(cfg, lay, specs, x, lp, positions, attn_fn)
+    if cfg.family != MOE:
+        return ML.mlp_block(cfg, lay, specs, x, lp), {}
+    h = lay.norm(x, lp, specs, "ln2", partial=lay.sp)
+    # the expert-parallel path's x gradient is a partial sum over the
+    # model axis (each shard's experts); the fallback's is whole
+    ep = MOE_MOD.expert_parallel(cfg, lay.mesh, lay.shape[0])
+    h = lay.to(h, ML.FULL, lay.res, grad_partial=("model",) if ep else ())
+    y, aux = MOE_MOD.moe_apply(
+        cfg, {k: lp[f"moe/{k}"] for k in MOE_MOD.moe_specs(cfg)}, h,
+        mesh=lay.mesh)
+    return x + lay.to(y, lay.res, ML.FULL), aux
 
 
 def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
@@ -436,15 +315,13 @@ def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
     batch rows); returns this process's share of the loss and the global
     ce_loss and lb_loss as metrics."""
     tokens, labels = batch["tokens"], batch["labels"]
-    nb = 1
-    for a in mesh.batch:
-        nb *= mesh.size(a)
+    nb = math.prod(mesh.size(a) for a in mesh.batch)
     B_local, S = tokens.shape
-    lay = _Layout(cfg, mesh, B_local * nb, S)
+    lay = ML.Layout(cfg, mesh, B_local * nb, S)
     pspecs = param_pspecs(specs(cfg), mesh)
-    lspecs = {p: s[1:] for p, s in flatten(pspecs["layers"])}
-    embed = lay.weight(params["embed"], pspecs["embed"], keep=lay.vocab)
-    x = _embed_mesh(cfg, lay, embed, tokens)
+    lspecs = ML.stack_pspecs(pspecs, "layers")
+    table = ML.embed_table(lay, params, pspecs)
+    x = ML.embed(cfg, lay, table, tokens)
     positions = torch.arange(S, device=x.device)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -458,35 +335,7 @@ def _mesh_loss(cfg: ModelConfig, params: dict, batch: dict, remat: str,
     for lp in unbind_layers(params["layers"], cfg.n_layers):
         x, lb = step(x, lp)
         lbs.append(lb)
-    fn = lay.weight(params["final_norm"]["scale"],
-                    pspecs["final_norm"]["scale"], partial=lay.sp)
-    x = L.apply_norm(x, {"scale": fn}, cfg.norm_eps)
-    x = lay.to(x, _FULL, lay.res, grad_partial=lay.vocab)
-    head = {"embed": embed}
-    if not cfg.tie_embeddings:
-        head["unembed"] = lay.weight(params["unembed"], pspecs["unembed"],
-                                     keep=lay.vocab)
-    nll = torch.zeros((), dtype=torch.float32, device=x.device)
-    count = torch.zeros((), dtype=torch.float32, device=x.device)
-    block = min(512, S)
-    if S % block:
-        pad = block - S % block
-        x = torch.cat([x, x.new_zeros((x.shape[0], pad, x.shape[2]))], dim=1)
-        labels = torch.cat([labels, labels.new_full((labels.shape[0], pad),
-                                                    -1)], dim=1)
-    for i in range(x.shape[1] // block):
-        cols = slice(i * block, (i + 1) * block)
-        blk_nll, blk_n = checkpoint(functools.partial(_ce_block_mesh, cfg,
-                                                      lay), head,
-                                    x[:, cols], labels[:, cols],
-                                    use_reentrant=False)
-        nll, count = nll + blk_nll, count + blk_n
-    for a in mesh.batch:
-        count = all_reduce(count, mesh, a)
-    share = nll / torch.clamp(count, min=1.0)
-    ce = share.detach()
-    for a in mesh.batch:
-        ce = all_reduce(ce, mesh, a)
+    share, ce = ML.loss_head(cfg, lay, params, pspecs, table, x, labels)
     if cfg.family != MOE:
         return share, {"ce_loss": ce, "lb_loss": torch.zeros_like(ce)}
     # lb is the same on every process, an all-reduce whose backward hands
@@ -567,36 +416,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 # ---------------------------------------------------------------------------
 
 def _serve_setup(cfg: ModelConfig, params: dict, tokens, S: int, mesh):
-    """(layout, per-layer specs, embedding as used, the embedded tokens,
-    global batch) for a serving step on local shards."""
-    B = tokens.shape[0] * math.prod(mesh.size(a) for a in mesh.batch)
-    lay = _Layout(cfg, mesh, B, S, res=_FULL)
-    pspecs = param_pspecs(specs(cfg), mesh)
-    lspecs = {p: s[1:] for p, s in flatten(pspecs["layers"])}
-    embed = lay.weight(params["embed"], pspecs["embed"], keep=lay.vocab)
-    x = _embed_mesh(cfg, lay, embed, tokens)
-    return lay, pspecs, lspecs, embed, x, B
-
-
-def _mesh_logits(cfg: ModelConfig, lay: _Layout, params: dict, pspecs,
-                 embed, x):
-    """The last position's logits (B_local, V_local): final norm, then the
-    unembedding on this process's vocabulary, laid out ("batch", "tp")."""
-    fn = lay.weight(params["final_norm"]["scale"],
-                    pspecs["final_norm"]["scale"])
-    x = L.apply_norm(x[:, -1:], {"scale": fn}, cfg.norm_eps)
-    head = {"embed": embed}
-    if not cfg.tie_embeddings:
-        head["unembed"] = lay.weight(params["unembed"], pspecs["unembed"],
-                                     keep=lay.vocab)
-    return unembed(cfg, head, x)[:, 0]
-
-
-def _kv_cache_pspec(cfg: ModelConfig, mesh, batch: int, max_seq: int):
-    """The PartitionSpec of the (L, B, Hkv, max_seq, Dh) key or value
-    cache on `mesh` (`cache.kv_cache_specs`)."""
-    spec = kv_cache_specs(cfg, batch, max_seq)["k"]
-    return logical_to_pspec(spec.axes, spec.shape, mesh)
+    """(layout, parameter PartitionSpecs, per-layer specs, embedding as
+    used, the embedded tokens, global batch) for a serving step on local
+    shards."""
+    lay, pspecs, table, x, B = ML.serve_setup(cfg, specs(cfg), params,
+                                              tokens, S, mesh)
+    return lay, pspecs, ML.stack_pspecs(pspecs, "layers"), table, x, B
 
 
 def _mesh_prefill(cfg: ModelConfig, params: dict, batch: dict, pad_to: int,
@@ -608,10 +433,10 @@ def _mesh_prefill(cfg: ModelConfig, params: dict, batch: dict, pad_to: int,
     chunk of the cache's sequence is written."""
     tokens = batch["tokens"]
     S = tokens.shape[1]
-    lay, pspecs, lspecs, embed, x, B = _serve_setup(cfg, params, tokens, S,
+    lay, pspecs, lspecs, table, x, B = _serve_setup(cfg, params, tokens, S,
                                                     mesh)
     cap = max(pad_to, S)
-    start, n = shard_range(_kv_cache_pspec(cfg, mesh, B, cap)[3], cap, mesh)
+    _, start, n = ML.cache_chunk(kv_cache_specs(cfg, B, cap)["k"], 3, mesh)
     lo, hi = min(start, S), min(start + n, S)       # prompt slots held here
     kv_shape = (cfg.n_layers, x.shape[0], cfg.n_kv_heads, n, cfg.head_dim)
     ck = torch.zeros(kv_shape, dtype=x.dtype, device=x.device)
@@ -625,32 +450,8 @@ def _mesh_prefill(cfg: ModelConfig, params: dict, batch: dict, pad_to: int,
             return L.attention(q, k, v, causal=True, impl=cfg.attn_impl)
         x, _ = _mesh_layer(cfg, lay, lspecs, x, dict(flatten(layer(
             params["layers"], i))), positions, attn_fn)
-    logits = _mesh_logits(cfg, lay, params, pspecs, embed, x)
+    logits = ML.last_logits(cfg, lay, params, pspecs, table, x)
     return logits, {"k": ck, "v": cv, "pos": S, "max_seq": cap}
-
-
-def _split_decode_attention(q, ck, cv, pos: int, start: int, mesh, axes):
-    """One query token against this process's cache slots [start, start +
-    n), the others' on the mesh axes `axes` (flash-decoding). q (B, 1,
-    Hq, Dh); ck, cv (B, Hkv, n, Dh). `attention_ref`'s softmax (float32,
-    scale Dh^-1/2, slots past ``pos`` masked) with the maximum, then the
-    rescaled sums and outputs, all-reduced over `axes`."""
-    B, _, Hq, Dh = q.shape
-    Hkv, n = ck.shape[1], ck.shape[2]
-    qg = q.reshape(B, Hkv, Hq // Hkv, Dh).float() * Dh ** -0.5
-    s = torch.einsum("bhgd,bhkd->bhgk", qg, ck.float())
-    valid = torch.arange(start, start + n, device=q.device) <= pos
-    s = torch.where(valid, s, NEG_INF)
-    m = s.amax(-1, keepdim=True)
-    for a in axes:
-        m = all_reduce(m, mesh, a, torch.distributed.ReduceOp.MAX)
-    p = torch.exp(s - m)
-    part = torch.cat([torch.einsum("bhgk,bhkd->bhgd", p, cv.float()),
-                      p.sum(-1, keepdim=True)], dim=-1)
-    for a in axes:
-        part = all_reduce(part, mesh, a)
-    o = part[..., :Dh] / part[..., Dh:]
-    return o.reshape(B, 1, Hq, Dh).to(q.dtype)
 
 
 def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict, tokens,
@@ -663,10 +464,11 @@ def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict, tokens,
     if pos >= cap:
         raise IndexError(f"the cache is full ({cap} slots); prefill with a "
                          f"larger pad_to")
-    lay, pspecs, lspecs, embed, x, B = _serve_setup(cfg, params,
+    lay, pspecs, lspecs, table, x, B = _serve_setup(cfg, params,
                                                     tokens[:, None], 1, mesh)
-    entry = _kv_cache_pspec(cfg, mesh, B, cap)[3]
-    start, n = shard_range(entry, cap, mesh)
+    entry, start, n = ML.cache_chunk(kv_cache_specs(cfg, B, cap)["k"], 3,
+                                     mesh)
+    kv_pos = torch.arange(start, start + n, device=x.device)
     positions = torch.arange(pos, pos + 1, device=x.device)
     for i in range(cfg.n_layers):
         def attn_fn(q, k, v, i=i):
@@ -675,8 +477,8 @@ def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict, tokens,
                 ck[i, :, :, pos - start] = k[:, 0]
                 cv[i, :, :, pos - start] = v[:, 0]
             if n < cap:
-                o = _split_decode_attention(q, ck[i], cv[i], pos, start,
-                                            mesh, spec_axes(entry))
+                o = ML.split_decode_attention(q, ck[i], cv[i], mesh,
+                                              spec_axes(entry), kv_pos, pos)
             else:
                 o = L.attention(q, ck[i].transpose(1, 2),
                                 cv[i].transpose(1, 2), causal=True,
@@ -684,5 +486,5 @@ def _mesh_decode(cfg: ModelConfig, params: dict, cache: dict, tokens,
             return lay.local_heads(o)
         x, _ = _mesh_layer(cfg, lay, lspecs, x, dict(flatten(layer(
             params["layers"], i))), positions, attn_fn)
-    logits = _mesh_logits(cfg, lay, params, pspecs, embed, x)
+    logits = ML.last_logits(cfg, lay, params, pspecs, table, x)
     return logits, {**cache, "pos": pos + 1}

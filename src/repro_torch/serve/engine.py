@@ -37,7 +37,7 @@ from repro_torch.config import ENCDEC
 from repro_torch.data.pipeline import shard_batch
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
-from repro_torch.models.params import DTYPES, shard_tree, tree_map
+from repro_torch.models.params import DTYPES, flatten, tree_map, unflatten
 from repro_torch.models.sharding import Mesh, NamedSharding, logical_to_pspec
 
 
@@ -57,11 +57,17 @@ class ServeEngine:
 
     def load(self, seed=0):
         """Seeded parameters on the engine's device (`seed`: an int or a
-        torch.Generator); on a mesh, this process's shards of them."""
-        self.params = self.model.init(seed, device=self.device)
+        torch.Generator); on a mesh, this process's shards of them, each
+        full leaf freed once its shard is taken."""
+        params = self.model.init(seed, device=self.device)
         if self.mesh is not None:
-            self.params = shard_tree(self.params,
-                                     self.model.shardings(self.mesh))
+            shardings = self.model.shardings(self.mesh)
+            full = dict(flatten(params))
+            del params
+            sh = dict(flatten(shardings))
+            params = unflatten(shardings, {p: sh[p].shard(full.pop(p))
+                                           for p in list(full)})
+        self.params = params
         return self
 
     def prepared_params(self) -> dict:
@@ -75,19 +81,23 @@ class ServeEngine:
     def prefill_batch(self, prompts) -> dict:
         """The prefill's inputs for prompts (B, S) on the engine's device:
         the tokens, and for an encoder-decoder zero frames (the frontend
-        stub); on a mesh, this process's slice of the tokens."""
-        if self.mesh is not None:
+        stub); on a mesh, this process's slice of them, as
+        `data.pipeline.shard_batch` lays them out (the frames'
+        ("batch", "seq", None): their rows)."""
+        on_mesh = self.mesh is not None
+        if on_mesh:
             tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long)
-            return shard_batch({"tokens": tokens},
-                               self.mesh.for_batch(tokens.shape))
-        tokens = torch.as_tensor(prompts, dtype=torch.long,
-                                 device=self.device)
+        else:
+            tokens = torch.as_tensor(prompts, dtype=torch.long,
+                                     device=self.device)
         batch = {"tokens": tokens}
         cfg = self.model.cfg
         if cfg.family == ENCDEC:
             batch["frames"] = torch.zeros(
                 (tokens.shape[0], cfg.enc_seq, cfg.d_model),
-                dtype=DTYPES[cfg.dtype], device=self.device)
+                dtype=DTYPES[cfg.dtype], device=tokens.device)
+        if on_mesh:
+            return shard_batch(batch, self.mesh.for_batch(tokens.shape))
         return batch
 
     def _sync(self):

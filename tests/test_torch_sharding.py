@@ -228,15 +228,18 @@ def test_cache_pspecs_equal_the_references(arch):
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "recurrentgemma-9b",
                                   "whisper-base"])
-def test_unported_families_refuse_a_mesh(arch):
-    """Training and serving the SSM, hybrid and encoder-decoder families
-    on a mesh is not ported: `loss`, `prefill` and `decode` with a mesh
-    raise NotImplementedError (before touching the mesh) rather than
-    running something else."""
+def test_unported_families_refuse_a_mesh(arch, monkeypatch):
+    """The SSM, hybrid and encoder-decoder families, which refused a mesh
+    (NotImplementedError) until their mesh paths were ported, now take
+    one: `loss`, `prefill` and `decode` with a mesh hand it to the
+    family's own `_mesh_loss`, `_mesh_prefill` and `_mesh_decode` (held
+    on local shards against the reference's mesh paths in
+    `tests/test_torch_mesh_families.py`), and none raises."""
     model = get_model(get_arch(arch).smoke)
     mesh = object()
-    for call in (lambda: model.loss({}, {}, mesh=mesh),
-                 lambda: model.prefill({}, {}, mesh=mesh),
-                 lambda: model.decode({}, {}, None, mesh=mesh)):
-        with pytest.raises(NotImplementedError, match=r"16\(c\)"):
-            call()
+    for name in ("_mesh_loss", "_mesh_prefill", "_mesh_decode"):
+        monkeypatch.setattr(model.mod, name,
+                            lambda *args, name=name: (name, args[-1]))
+    assert model.loss({}, {}, mesh=mesh) == ("_mesh_loss", mesh)
+    assert model.prefill({}, {}, mesh=mesh) == ("_mesh_prefill", mesh)
+    assert model.decode({}, {}, None, mesh=mesh) == ("_mesh_decode", mesh)

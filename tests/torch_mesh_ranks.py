@@ -386,8 +386,9 @@ def kept(dispatch_combine, k, T, D):
 
 
 def _ref_params(out, arch):
-    """The reference's PRNGKey(0) parameters of `arch`, written by the
-    reference's side, through `convert.from_reference_params`."""
+    """The reference's PRNGKey(0) parameters of `arch` (or of a family
+    key, `family_cfg`), written by the reference's side, through
+    `convert.from_reference_params`."""
     from repro_torch.convert import from_reference_params
     flat = dict(np.load(out / f"params_{arch}.npz"))
     tree: dict = {}
@@ -397,7 +398,8 @@ def _ref_params(out, arch):
         for k in head:
             node = node.setdefault(k, {})
         node[last] = v
-    return from_reference_params(serve_cfg(arch), tree, device="cpu")
+    cfg = family_cfg(arch) if arch in FAMILY_KEYS else serve_cfg(arch)
+    return from_reference_params(cfg, tree, device="cpu")
 
 
 def _gather_rows(x, mesh, ndim):
@@ -590,5 +592,256 @@ def job_moe_two(rank, out):
     _mesh_serve_job(rank, out, TWO)
 
 
+# ---------------------------------------------------------------------------
+# The ssm, hybrid and encdec families on a mesh
+# (`tests/test_torch_mesh_families.py`; the reference's side is
+# `tests/torch_mesh_reference.py OUT families ARCH`)
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("mamba2-2.7b", "recurrentgemma-9b", "whisper-base")
+LAYER_NORM = "whisper-base-ln"   # Whisper's smoke config with layer norms
+FAMILY_KEYS = FAMILY_ARCHS + (LAYER_NORM,)
+FAM_MESHES = ("2x2", "1x4", "4x1")
+FAM_REMAT = {"2x2": "full", "1x4": "dots"}      # besides "none" everywhere
+FAM_PROMPT = 32        # twice RecurrentGemma's window of 16: the ring wraps;
+                       # two of Mamba-2's SSD chunks of 16
+FAM_STEP_B, FAM_STEP_MICRO = 8, 4
+FAM_CKPT_TARGETS = ("1x4", "4x1")
+
+
+def family_cfg(key):
+    """The smoke config of a family key in float32; `LAYER_NORM` is
+    Whisper's with layer norms (a scale and a bias each), the published
+    config's norm, which the smoke config leaves out."""
+    if key == LAYER_NORM:
+        return serve_cfg("whisper-base", norm_kind="layer")
+    return serve_cfg(key)
+
+
+def family_pads(key):
+    """The serving tests' pad_to: for an encoder-decoder two capacities
+    past the prompt and its decode steps, one that the model axes (2, 4)
+    divide and one they do not; the O(1)-state families ignore pad_to,
+    so the prompt's length and a longer one."""
+    if family_cfg(key).family == "encdec":
+        return (48, 43)
+    return (FAM_PROMPT, 48)
+
+
+def family_meshes(key):
+    """The meshes of a key's loss and serving tests: Whisper's layer-norm
+    variant on (1, 4) only (heads, d_ff, vocabulary and the residual's
+    sequence split four ways)."""
+    return ("1x4",) if key == LAYER_NORM else FAM_MESHES
+
+
+def frames(cfg, B, seed):
+    """Encoder frames (B, enc_seq, d_model), made with numpy from `seed`."""
+    return np.random.default_rng(seed).normal(
+        size=(B, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+
+
+def family_batch(cfg, B, S, seed):
+    """`lm_batch`, and an encoder-decoder's frames."""
+    out = lm_batch(cfg, B, S, seed)
+    if cfg.family == "encdec":
+        out["frames"] = frames(cfg, B, seed + 100)
+    return out
+
+
+def family_prompts(cfg):
+    """The serving tests' prompts (and an encoder-decoder's frames)."""
+    out = {"tokens": prompts(cfg, SERVE_B, FAM_PROMPT, 7)}
+    if cfg.family == "encdec":
+        out["frames"] = frames(cfg, SERVE_B, 8)
+    return out
+
+
+def family_train_cfg(compression="none"):
+    return TrainConfig(seq_len=LOSS_S, global_batch=FAM_STEP_B,
+                       microbatch=FAM_STEP_MICRO, steps=1, log_every=0,
+                       optimizer=OptimizerConfig(**opt_kw(compression)))
+
+
+def family_state0(params, compression="none"):
+    """A train state at `params` with zero moments (and error feedback)."""
+    state = moe_state0(params)
+    if compression != "none":
+        state["ef"] = tree_map(torch.zeros_like, params)
+    return state
+
+
+def _fam_grads(rank, out, key, shape, remat):
+    """The loss and gradients of `key` on the mesh at the reference's
+    params, under `remat`."""
+    model = get_model(family_cfg(key))
+    mesh = _mesh(shape)
+    sh = model.shardings(mesh)
+    leaves = TL._grad_leaves(shard_tree(_ref_params(out, key), sh))
+    run_mesh = mesh.for_batch((LOSS_B, LOSS_S))
+    batch = shard_batch(family_batch(model.cfg, LOSS_B, LOSS_S, 3), run_mesh)
+    loss, metrics = TL._backward(model, remat, leaves, batch, run_mesh)
+    _save(rank, out / f"fam_grads_{key}_{shape}_{remat}.npz",
+          gather_tree(TL._grads(leaves), sh),
+          {"loss": float(loss), **_floats(metrics)})
+
+
+def _fam_serve(rank, out, key, shape, pad):
+    """Prefill, then DECODE greedy steps on the mesh: each step's logits
+    gathered; every cache leaf gathered, and this process's shard of
+    it."""
+    model = get_model(family_cfg(key))
+    cfg = model.cfg
+    mesh = _mesh(shape).for_batch((SERVE_B, FAM_PROMPT))
+    params = model.prepare(shard_tree(_ref_params(out, key),
+                                      model.shardings(mesh)))
+    lsh = SH.NamedSharding(mesh, SH.logical_to_pspec(
+        ("batch", "tp"), (SERVE_B, cfg.vocab_size), mesh))
+    tsh = SH.NamedSharding(mesh, SH.logical_to_pspec(
+        ("batch",), (SERVE_B,), mesh))
+    logits, cache = model.prefill(params, shard_batch(family_prompts(cfg),
+                                                      mesh),
+                                  pad_to=pad, mesh=mesh)
+    steps = [lsh.gather(logits)]
+    for _ in range(DECODE):
+        logits, cache = model.decode(params, cache,
+                                     tsh.shard(torch.argmax(steps[-1], -1)),
+                                     mesh=mesh)
+        steps.append(lsh.gather(logits))
+    csh = dict(flatten(model.cache_shardings(SERVE_B, pad, mesh)))
+    local = {p: t for p, t in flatten(cache) if isinstance(t, torch.Tensor)}
+    tag = f"{key}_{shape}_{pad}"
+    np.savez(out / f"fam_serve_{tag}_r{rank}.npz",
+             **{p: t.numpy() for p, t in local.items()},
+             coords=np.array([mesh.index("data"), mesh.index("model")]))
+    full = {p: csh[p].gather(t).numpy() for p, t in local.items()}
+    if rank == 0:
+        np.savez(out / f"fam_serve_{tag}.npz",
+                 logits=np.stack([s.numpy() for s in steps]), **full)
+        (out / f"fam_serve_{tag}.json").write_text(json.dumps(
+            {"pos": cache["pos"]}))
+
+
+def _fam_engine(rank, out, key, shape="2x2"):
+    """`ServeEngine(mesh=)`'s greedy tokens (an encoder-decoder fed the
+    engine's zero frames)."""
+    from repro_torch.serve.engine import ServeEngine
+    model = get_model(family_cfg(key))
+    mesh = _mesh(shape)
+    eng = ServeEngine(model, mesh=mesh)
+    eng.params = shard_tree(_ref_params(out, key), model.shardings(mesh))
+    res = eng.generate(prompts(model.cfg, SERVE_B, FAM_PROMPT, 9),
+                       ENGINE_NEW)
+    if rank == 0:
+        np.savez(out / f"fam_engine_{key}.npz", tokens=res["tokens"])
+        (out / f"fam_engine_{key}.json").write_text(json.dumps(
+            res["stats"]))
+
+
+def _fam_steps(rank, out, key, shape="2x2"):
+    """One AdamW step of `key` on the mesh through `train.loop.run` (two
+    microbatches of 4 rows, grad_clip active) from the reference's
+    params; then one int8 step from the same params; then the AdamW
+    state checkpointed and restored onto FAM_CKPT_TARGETS."""
+    model = get_model(family_cfg(key))
+    mesh = _mesh(shape)
+    params = _ref_params(out, key)
+    batch = family_batch(model.cfg, FAM_STEP_B, LOSS_S, 20)
+    states = {}
+    for compression in ("none", "int8"):
+        tcfg = family_train_cfg(compression)
+        sh = TL.state_shardings(model, tcfg.optimizer, mesh)
+        state = shard_tree(family_state0(params, compression), sh)
+        res = TL.run(model, tcfg, iter([batch]), mesh=mesh, state=state)
+        _save(rank, out / f"fam_steps_{key}_{compression}.npz",
+              gather_tree(res["state"], sh), res["history"])
+        states[compression] = (res["state"], sh)
+    state, sh = states["none"]
+    mgr = CKPT.CheckpointManager(str(out / f"fam_ckpt_{key}"), keep=1,
+                                 async_save=False)
+    mgr.save(1, state, shardings=sh)
+    dist.barrier()
+    opt = family_train_cfg().optimizer
+    for target in FAM_CKPT_TARGETS:
+        tsh = TL.state_shardings(model, opt, _mesh(target))
+        restored, _ = mgr.restore(TL.abstract_state(model, opt),
+                                  shardings=tsh)
+        _save(rank, out / f"fam_restore_{key}_{target}.npz",
+              gather_tree(restored, tsh))
+    dist.barrier()
+
+
+def _fam_elastic(rank, out, key):
+    """An ElasticJob of `key` on ranks 0-3 takes a step and migrates to
+    ranks 0-1: its state gathered before and after."""
+    model = get_model(family_cfg(key))
+    job = ElasticJob(model, family_train_cfg(), str(out / f"fam_el_{key}"))
+    job.start([0, 1, 2, 3])
+    job.train_step(family_batch(model.cfg, FAM_STEP_B, LOSS_S, 21))
+    before = gather_tree(job.state, job.state_shardings())
+    record = job.migrate([0, 1])
+    if job.member:
+        after = gather_tree(job.state, job.state_shardings())
+        _save(rank, out / f"fam_elastic_{key}_after.npz", after,
+              {"n_devices": record["n_devices"], "step": record["step"]})
+    _save(rank, out / f"fam_elastic_{key}_before.npz", before)
+
+
+def job_fam_four(rank, out):
+    for key in FAMILY_KEYS:
+        for shape in family_meshes(key):
+            _fam_grads(rank, out, key, shape, "none")
+        if key in FAMILY_ARCHS:
+            for shape, remat in FAM_REMAT.items():
+                _fam_grads(rank, out, key, shape, remat)
+        for shape in family_meshes(key):
+            for pad in family_pads(key):
+                _fam_serve(rank, out, key, shape, pad)
+    for key in FAMILY_ARCHS:
+        _fam_engine(rank, out, key)
+        _fam_steps(rank, out, key)
+    _fam_elastic(rank, out, "mamba2-2.7b")
+
+
+def _kernel_spy():
+    """Record the shape each kernel entry of the model path (`kernels.
+    ops`: ssd, rglru, mha) is called with, and whether it is under grad
+    (its first input requires it)."""
+    from repro_torch.kernels import ops
+    calls = []
+
+    def wrap(name):
+        real = getattr(ops, name)
+
+        def call(x, *args, **kw):
+            calls.append((name, list(x.shape), x.requires_grad))
+            return real(x, *args, **kw)
+        setattr(ops, name, call)
+    for name in ("ssd", "rglru", "mha"):
+        wrap(name)
+    return calls
+
+
+def job_fam_two(rank, out):
+    """(1, 2): each family's loss and gradients, then a prefill, with the
+    kernel entries' calls recorded: the heads or channels each process's
+    SSD, RG-LRU and attention calls see."""
+    calls = _kernel_spy()
+    record = {}
+    for key in FAMILY_ARCHS:
+        calls.clear()
+        _fam_grads(rank, out, key, "1x2", "none")
+        model = get_model(family_cfg(key))
+        mesh = _mesh("1x2").for_batch((SERVE_B, FAM_PROMPT))
+        params = model.prepare(shard_tree(_ref_params(out, key),
+                                          model.shardings(mesh)))
+        n_train = len(calls)
+        model.prefill(params, shard_batch(family_prompts(model.cfg), mesh),
+                      pad_to=FAM_PROMPT + 1, mesh=mesh)
+        record[key] = {"train": calls[:n_train], "prefill": calls[n_train:]}
+    (out / f"fam_kernels_r{rank}.json").write_text(json.dumps(record))
+
+
 JOBS = {"four": job_four, "two": job_two, "fault": job_fault,
-        "moe_four": job_moe_four, "moe_two": job_moe_two}
+        "moe_four": job_moe_four, "moe_two": job_moe_two,
+        "fam_four": job_fam_four, "fam_two": job_fam_two}

@@ -1,8 +1,9 @@
-"""The reference's side of `tests/test_torch_mesh_serve.py`, run as a
-script in a process of its own:
+"""The reference's side of `tests/test_torch_mesh_serve.py` and
+`tests/test_torch_mesh_families.py`, run as a script in a process of
+its own:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=4 JAX_PLATFORMS=cpu \
-        python tests/torch_mesh_reference.py OUT_DIR
+        python tests/torch_mesh_reference.py OUT_DIR [families ARCH]
 
 The reference's mesh paths (the MoE's ``shard_map``, the decode cache's
 ``kv_seq`` layout) run only under a JAX mesh of several devices, and JAX
@@ -13,7 +14,11 @@ configs' PRNGKey(0) parameters (float32), which the port's ranks
 (`tests/torch_mesh_ranks.py`) load; then, on the same inputs (made with
 numpy from the seeds there), the reference's MoE layer, OLMoE's loss and
 gradients, prefill and decode steps and its engine's tokens, each under
-its mesh.
+its mesh. With ``families ARCH`` (one process a family, run side by
+side) it does the same for Mamba-2, RecurrentGemma or Whisper (Whisper
+also with layer norms): the loss and gradients, prefill and decode
+steps with the whole cache, and the engine's tokens, each under its
+mesh.
 """
 import dataclasses
 import sys
@@ -135,6 +140,98 @@ def _engine(out, params, arch, name):
     np.savez(out / f"ref_engine_{arch}_{name}.npz", tokens=res["tokens"])
 
 
+def _inputs(batch, mesh):
+    """A batch laid out on `mesh` by its logical axes, as the dry run
+    lays the inputs out (("batch", "seq"), frames ("batch", "seq",
+    None))."""
+    out = {}
+    for k, v in batch.items():
+        axes = ("batch", "seq", None)[:v.ndim]
+        out[k] = jax.device_put(jnp.asarray(v), NamedSharding(
+            mesh, logical_to_pspec(axes, v.shape, mesh)))
+    return out
+
+
+def _fam_cfg(key):
+    if key == R.LAYER_NORM:
+        return _cfg("whisper-base", norm_kind="layer")
+    return _cfg(key)
+
+
+def _fam_grads(out, params, key, name):
+    """value_and_grad of the loss, jitted under the mesh, the parameters
+    and the batch laid out on it."""
+    model = get_model(_fam_cfg(key))
+    batch = R.family_batch(model.cfg, R.LOSS_B, R.LOSS_S, 3)
+    with _mesh(name) as mesh:
+        p = jax.device_put(params, model.shardings(mesh))
+        (loss, _), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: model.loss(p, b), has_aux=True))(
+            p, _inputs(batch, mesh))
+    np.savez(out / f"ref_fam_grads_{key}_{name}.npz", loss=float(loss),
+             **_flat(grads))
+
+
+def _fam_serve(out, params, key, name, pad):
+    """`_serve` of a family: the prompts (and frames) laid out on the
+    mesh; every cache leaf but ``pos`` saved."""
+    model = get_model(_fam_cfg(key))
+    B, V = R.SERVE_B, model.cfg.vocab_size
+    mesh = _mesh(name)
+    with mesh:
+        p = jax.device_put(params, model.shardings(mesh))
+        csh = model.cache_shardings(B, pad, mesh)
+        lsh = NamedSharding(mesh, logical_to_pspec(("batch", "tp"), (B, V),
+                                                   mesh))
+        prefill = jax.jit(lambda p, b: model.prefill(p, b, pad_to=pad),
+                          out_shardings=(lsh, csh))
+        decode = jax.jit(lambda p, c, t: model.decode(p, c, t),
+                         out_shardings=(lsh, csh))
+        logits, cache = prefill(p, _inputs(R.family_prompts(model.cfg),
+                                           mesh))
+        steps = [np.asarray(logits)]
+        for _ in range(R.DECODE):
+            tok = jnp.argmax(logits, -1).astype(jnp.int32)
+            logits, cache = decode(p, cache, tok)
+            steps.append(np.asarray(logits))
+    pos = int(cache.pop("pos"))
+    np.savez(out / f"ref_fam_serve_{key}_{name}_{pad}.npz",
+             logits=np.stack(steps), pos=pos, **_flat(cache))
+
+
+def _fam_engine(out, params, key, name="2x2"):
+    model = get_model(_fam_cfg(key))
+    with _mesh(name) as mesh:
+        eng = ServeEngine(model, jax.device_put(params,
+                                                model.shardings(mesh)))
+        res = eng.generate(R.prompts(model.cfg, R.SERVE_B, R.FAM_PROMPT, 9),
+                           R.ENGINE_NEW)
+    np.savez(out / f"ref_fam_engine_{key}.npz", tokens=res["tokens"])
+
+
+def main_family(out: Path, arch: str):
+    """The reference's results for one family (`arch`; Whisper also
+    with layer norms). The O(1)-state families' prefill ignores pad_to,
+    so they run at the first of `family_pads` only."""
+    keys = (arch, R.LAYER_NORM) if arch == "whisper-base" else (arch,)
+    params = {k: get_model(_fam_cfg(k)).init(jax.random.PRNGKey(0))
+              for k in keys}
+    for k, tree in params.items():
+        np.savez(out / f"params_{k}.npz", **_flat(tree))
+    (out / f"params_{arch}.done").write_text("")
+    for k in keys:
+        pads = R.family_pads(k)
+        if _fam_cfg(k).family != "encdec":
+            pads = pads[:1]
+        for name in R.family_meshes(k):
+            _fam_grads(out, params[k], k, name)
+            for pad in pads:
+                _fam_serve(out, params[k], k, name, pad)
+        if k in R.FAMILY_ARCHS:
+            _fam_engine(out, params[k], k)
+    (out / f"reference_{arch}.done").write_text("")
+
+
 def main(out: Path):
     if len(jax.devices()) < 4:
         raise SystemExit("needs XLA_FLAGS=--xla_force_host_platform_device_"
@@ -164,4 +261,10 @@ def main(out: Path):
 
 
 if __name__ == "__main__":
-    main(Path(sys.argv[1]))
+    if len(sys.argv) > 2 and sys.argv[2] == "families":
+        if len(jax.devices()) < 4:
+            raise SystemExit("needs XLA_FLAGS=--xla_force_host_platform_"
+                             "device_count=4 set before JAX starts")
+        main_family(Path(sys.argv[1]), sys.argv[3])
+    else:
+        main(Path(sys.argv[1]))
