@@ -184,7 +184,10 @@ raising on failure so the run exits non-zero:
      widths in float32 on the same meshes, each step held against the
      unsharded step on card 0 leaf by leaf on the card, each card's
      SSD, RG-LRU and flash launches counted per route every step, the
-     peak GB per card; then an ElasticJob of SmolLM on all W cards
+     peak GB per card; with W >= 2, each mesh's first-step collective
+     records on rank 0 held item for item against the same step as one
+     device of an abstract mesh (`Mesh.abstract`, no process group) at
+     rank 0's coordinates; then an ElasticJob of SmolLM on all W cards
      migrates to the first ceil(W/2) and back, its state bit-equal
      across each reshard (cuda:0 to cuda:0 with one card);
   10c. mesh_serve: serving sharded over the cards, W processes as in
@@ -213,6 +216,22 @@ raising on failure so the run exits non-zero:
      the cost counter's calls equal the kernels' launches; then the
      roofline of the cells (`repro_torch.launch.roofline`), SmolLM-135M
      at train_4k with phase 9's step time and an mfu equal to phase 9's;
+  11b. dryrun_mesh: the dry run as one device of the reference's
+     production meshes (abstract meshes: one device's share on this
+     card, no process group): `dryrun --mesh single` on the four
+     hill-climb cells (chameleon-34b and smollm-135m train_4k, dbrx-132b
+     train_4k, starcoder2-15b decode_32k), recurrentgemma-9b train_4k
+     (all 38 layers) and mamba2-2.7b and whisper-base prefill_32k;
+     `dryrun --mesh multi` on chameleon-34b train_4k; the hill-climb
+     variants A1, A6, A9, B1, B3, C1, C2, D1 and D2 (every lever:
+     microbatch, mesh shape, rules override, remat, config fields).
+     Each cell's per-device argument bytes equal the host formula's
+     (`mesh_memory_stats` over a plain {axis: size} mapping), DBRX's
+     train cell is probed, every mesh of more than one device records
+     wire bytes > 0, B1 and B3 (`PURE_DP`) record only all-reduces over
+     "model" (gradients and statistics: "model" is a batch axis there),
+     C2 (`SERVE_TP`) gathers nothing over "data", and the cost counter's
+     calls equal the kernels' launches;
   12. the reference's entry points (`repro_torch.examples`) on the card
      at the reference's defaults, each held to its own verdict
      (quickstart's loss falls; carbon_train's average C(t) <= its
@@ -224,9 +243,9 @@ raising on failure so the run exits non-zero:
 
 Phases 5, 5c, 5d (each full-width cell), 5e (the agnostic subclass), 7,
 7b, 9 (each model's timed steps), 10, 10b (each mesh's steps), 10c (each
-mesh's generate), 11 and 12
+mesh's generate), 11, 11b and 12
 (the defaults' runs)
-are the main paths (11 and 12 are counted, not pinned): every
+are the main paths (11, 11b and 12 are counted, not pinned): every
 kernel's launch counter is set to 0
 just before each path and read just after; each path must have launched
 exactly its kernels (T admission launches in each sweep, one per epoch;
@@ -2234,6 +2253,37 @@ def _state_from_rank0(flat, model, opt, mesh, rank):
     return unflatten(abstract, out)
 
 
+def _abstract_records(model, tcfg, mesh, batch, records, rank):
+    """With W >= 2, on rank 0: the same first step as one device of an
+    abstract mesh of `mesh`'s axes at rank 0's coordinates
+    (`Mesh.abstract`, no process group), its collective records held
+    against the real step's `records` item for item; their count (None
+    elsewhere)."""
+    if mesh.n_devices < 2 or rank != 0:
+        return None
+    from repro_torch.launch.collectives import COUNTER
+    from repro_torch.models.sharding import Mesh
+    from repro_torch.train import loop as TL
+    amesh = Mesh.abstract(mesh.sizes, mesh.coords, mesh.device)
+    state = TL.init_state(model, tcfg.optimizer, SEED, mesh=amesh)
+    step = TL.make_train_step(model, tcfg, amesh)
+    COUNTER.reset()
+    with COUNTER.on():
+        step(state, batch)
+    got = list(COUNTER.records)
+    COUNTER.reset()
+    del state, step
+    _free_device_memory()
+    if got != records:
+        n = min(len(got), len(records))
+        diff = next((i for i in range(n) if got[i] != records[i]), n)
+        raise AssertionError(f"abstract mesh {mesh.sizes}: the first step's "
+                             f"collective records differ from the real "
+                             f"step's at record {diff} ({len(got)} vs "
+                             f"{len(records)} records)")
+    return len(got)
+
+
 def _mesh_train_model(rank, world, arch, n_layers):
     """`arch` (f32) at sequence 1,024, global batch 8: each mesh takes
     MESH_STEPS steps from the seed, held after every step against the
@@ -2289,6 +2339,7 @@ def _mesh_train_model(rank, world, arch, n_layers):
                 COUNTER.reset()
                 with COUNTER.on():
                     state, m = step(state, b)
+                records0 = list(COUNTER.records)
             else:
                 state, m = step(state, b)
             metrics = {k: float(v) for k, v in m.items()}      # syncs
@@ -2329,6 +2380,8 @@ def _mesh_train_model(rank, world, arch, n_layers):
                                                mesh.n_devices)})
         del state, step
         _free_device_memory()
+        meshes[-1]["abstract_records_equal"] = _abstract_records(
+            model, tcfg, mesh, batches[0], records0, rank)
     return {"arch": arch, "n_layers": model.cfg.n_layers,
             "params": model.param_count(), "dtype": "float32",
             "seq_len": MESH_SEQ, "global_batch": MESH_BATCH,
@@ -2415,6 +2468,7 @@ def _mesh_train_family(rank, world, arch, n_layers, seq, batch):
                 COUNTER.reset()
                 with COUNTER.on():
                     state, m = step(state, b)
+                records0 = list(COUNTER.records)
             else:
                 state, m = step(state, b)
             metrics = {k: float(v) for k, v in m.items()}      # syncs
@@ -2454,6 +2508,8 @@ def _mesh_train_family(rank, world, arch, n_layers, seq, batch):
                                                mesh.n_devices)})
         del state, step, want, p0
         _free_device_memory()
+        meshes[-1]["abstract_records_equal"] = _abstract_records(
+            model, tcfg, mesh, batches[0], records0, rank)
     return {"arch": arch, "n_layers": cfg.n_layers,
             "params": model.param_count(), "dtype": "float32",
             "seq_len": seq, "global_batch": batch, "steps": MESH_STEPS,
@@ -2864,6 +2920,147 @@ def dryrun_phase(dev, measured):
             "cost_flops": dict(COUNTER.flops), "cost_bytes": dict(COUNTER.bytes),
             "not_probed": not_probed,
             "rows": rows, "table": roofline.markdown_table(rows)}
+
+
+# the dry run on the reference's production meshes (phase 11b): the four
+# hill-climb cells, RecurrentGemma's 38 layers, a prefill of Mamba-2 and of
+# Whisper on 16x16; chameleon on 2x16x16; the variants that cover every lever
+DRYRUN_MESH_SINGLE = [("chameleon-34b", "train_4k"),
+                      ("smollm-135m", "train_4k"),
+                      ("dbrx-132b", "train_4k"),
+                      ("starcoder2-15b", "decode_32k"),
+                      ("recurrentgemma-9b", "train_4k"),
+                      ("mamba2-2.7b", "prefill_32k"),
+                      ("whisper-base", "prefill_32k")]
+DRYRUN_MESH_MULTI = [("chameleon-34b", "train_4k")]
+HILLCLIMB_VARIANTS = ("A1", "A6", "A9", "B1", "B3", "C1", "C2", "D1", "D2")
+
+
+def _mesh_cell_problems(res: dict, where: str) -> list:
+    """A mesh cell's checks: its per-device argument bytes recomputed on
+    the host over a plain {axis: size} mapping (no `Mesh`) under its
+    rules, and wire bytes > 0 on a mesh of more than one device."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun_lib as DL
+    from repro_torch.models.sharding import rules_ctx
+    cfg = dataclasses.replace(get_arch(res["arch"]).full, **{
+        k: (v == "True" if v in ("True", "False") else v)
+        for k, v in res.get("cfg_kw", {}).items()})
+    rules = {k: tuple(v) for k, v in res.get("rules_override", {}).items()}
+    with rules_ctx(rules or None):
+        host = DL.mesh_memory_stats(cfg, res["shape"], res["mesh"]["axes"],
+                                    res["card_bytes"])
+    out = []
+    if host["argument_bytes"] != res["memory"]["argument_bytes"]:
+        out.append(f"{where}: argument bytes {res['memory']['argument_bytes']}"
+                   f" != the host formula's {host['argument_bytes']}")
+    wire = res.get("collectives", {}).get("total_wire_bytes", 0.0)
+    if res["devices"] > 1 and not wire > 0:
+        out.append(f"{where}: wire bytes {wire}")
+    return out
+
+
+def dryrun_mesh_phase(dev, card):
+    """The dry run on the production meshes (`dryrun --mesh single` and
+    `--mesh multi` on `DRYRUN_MESH_*`) and the hill-climb variants
+    `HILLCLIMB_VARIANTS` (`python -m repro_torch.launch.hillclimb
+    --only ...`), each one device of its abstract mesh on this card;
+    the checks of `_mesh_cell_problems` on every cell and variant, DBRX's
+    train cell probed, PURE_DP's and SERVE_TP's layouts, and the cost
+    counter's calls equal to the kernels' launches over the phase.
+    Per-device bytes on a 256- or 512-device mesh are arithmetic, not a
+    measurement of those cards."""
+    from repro_torch.kernels.cost import COUNTER
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch.roofline import axis_seconds, roofline_row
+    save, hc_dir = OUT / "dryrun", OUT / "hillclimb"
+    COUNTER.reset()
+    _zero_counts()
+    t0 = time.perf_counter()
+    rcs = {}
+    for mesh, cells in (("single", DRYRUN_MESH_SINGLE),
+                        ("multi", DRYRUN_MESH_MULTI)):
+        for arch, shape in cells:
+            rcs[f"{mesh} {arch} {shape}"] = dryrun.main([
+                "--mesh", mesh, "--arch", arch, "--shape", shape,
+                "--device", "cuda", "--save-dir", str(save)])
+    rcs["hillclimb"] = hillclimb.main(["--only", ",".join(HILLCLIMB_VARIANTS),
+                                       "--out-dir", str(hc_dir)])
+    run_s = time.perf_counter() - t0
+    launches, calls = _read_counts(), dict(COUNTER.calls)
+    problems = [f"{k}: rc {rc}" for k, rc in rcs.items() if rc]
+    if calls != launches:
+        problems.append(f"cost counter calls {calls} != launches {launches}")
+    cells = {}
+    for mesh, group in (("single_pod", DRYRUN_MESH_SINGLE),
+                        ("multi_pod", DRYRUN_MESH_MULTI)):
+        for arch, shape in group:
+            path = save / mesh / f"{arch}__{shape}.json"
+            if path.exists():
+                cells[f"{mesh}/{arch}__{shape}"] = json.loads(path.read_text())
+            else:
+                problems.append(f"{mesh} {arch} {shape}: no JSON")
+    variants = {}
+    for path in sorted(hc_dir.glob("*.json")):
+        res = json.loads(path.read_text())
+        variants[res["variant"].split("_")[0]] = res
+    if sorted(variants) != sorted(HILLCLIMB_VARIANTS):
+        problems.append(f"variants written: {sorted(variants)}")
+    for where, res in list(cells.items()) + list(variants.items()):
+        problems += _mesh_cell_problems(res, where)
+    dbrx = cells.get("single_pod/dbrx-132b__train_4k", {})
+    if "cost_probed" not in dbrx:
+        problems.append(f"DBRX train_4k not probed on 16x16: "
+                        f"{dbrx.get('probe')}")
+    for key in ("B1", "B3"):
+        model = variants.get(key, {}).get("collectives", {}).get(
+            "per_axis", {}).get("model", {})
+        if any(model.get(k) for k in ("all-gather", "reduce-scatter",
+                                      "all-to-all", "collective-permute")):
+            problems.append(f"{key} (PURE_DP): {model} over model")
+    c2 = variants.get("C2", {}).get("collectives", {}).get(
+        "per_axis", {}).get("data", {})
+    if c2.get("all-gather"):
+        problems.append(f"C2 (SERVE_TP) gathers over data: {c2}")
+    if problems:
+        raise AssertionError(f"dryrun_mesh: {problems}")
+
+    def row(res):
+        mem = res["memory"]
+        coll = res.get("collectives", {})
+        out = {"devices": res["devices"], "mesh": res["mesh"]["axes"],
+               "argument_bytes": mem["argument_bytes"],
+               "probe_peak_bytes": mem.get("probe_peak_bytes"),
+               "wire_bytes": coll.get("total_wire_bytes"),
+               "wire_by_kind": {k: v["wire_bytes"] for k, v in
+                                coll.get("per_kind", {}).items()},
+               "wire_by_axis": {k: v["wire_bytes"] for k, v in
+                                coll.get("per_axis", {}).items()},
+               "collective_s": axis_seconds(coll.get("per_axis", {})),
+               "kernel_calls": {k: v for k, v in res.get(
+                   "kernel_calls", {}).items() if v}}
+        if "cost_probed" in res:
+            r = roofline_row(res)
+            out.update({k: r[k] for k in ("compute_s", "memory_s",
+                                          "dominant", "useful_ratio")})
+            out["flops"] = res["cost_probed"]["flops"]
+        return out
+    summary = {"card": card, "run_s": run_s, "launches": launches,
+               "cost_calls": calls,
+               "note": "per-device bytes of 256/512-device meshes: "
+                       "arithmetic and one device's probes on this card, "
+                       "not a measurement of those cards",
+               "cells": {k: row(r) for k, r in cells.items()},
+               "variants": {k: {**row(r), "name": r["variant"]}
+                            for k, r in variants.items()}}
+    for k, r in {**summary["cells"], **summary["variants"]}.items():
+        print(f"[dryrun_mesh] {card}: {k} on {r['mesh']}: args "
+              f"{r['argument_bytes']/1e9:.4f} GB a device, probe peak "
+              f"{(r['probe_peak_bytes'] or 0)/1e9:.2f} GB, wire "
+              f"{(r['wire_bytes'] or 0)/1e9:.4f} GB a device by axis "
+              f"{r['wire_by_axis']}, collective_s {r['collective_s']:.5f} "
+              f"(data-sheet links)", flush=True)
+    return summary
 
 
 # the sweep examples at a reduced size, card against CPU (bit-equal rows:
@@ -3418,6 +3615,8 @@ def main():
     if roof[smollm]["mfu"] != train[0]["mfu"]:
         raise AssertionError(f"roofline mfu {roof[smollm]['mfu']} != phase "
                              f"9's {train[0]['mfu']}")
+    dry_mesh = timed("dryrun_mesh", dryrun_mesh_phase, dev, card)
+    _free_device_memory()
     examples = timed("examples", examples_phase, dev)
     _free_device_memory()
 
@@ -3432,7 +3631,9 @@ def main():
                "carbon_trainer": trainer["launches"],
                "mesh_train": mesh_train["launches"],
                "mesh_serve": mesh_serve["launches"],
-               "dryrun": dry["launches"], "examples": examples["launches"]}
+               "dryrun": dry["launches"],
+               "dryrun_mesh": dry_mesh["launches"],
+               "examples": examples["launches"]}
     for name, record in kernels.items():
         record["launches_by_path"] = {path: counts[name] for path, counts in
                                       by_path.items() if counts[name]}
@@ -3471,7 +3672,7 @@ def main():
               "mesh_serve": mesh_serve,
               "scan_backward": scan_bwd,
               "dryrun": {k: v for k, v in dry.items() if k != "table"},
-              "examples": examples}
+              "dryrun_mesh": dry_mesh, "examples": examples}
     OUT.mkdir(exist_ok=True)
     (OUT / "chip_smoke.json").write_text(json.dumps(record, indent=1))
     summary = {k: v for k, v in full.items() if k not in ("rows", "profile")}
@@ -3533,6 +3734,7 @@ def main():
     print(dry["table"], flush=True)
     print(json.dumps({"dryrun": {k: v for k, v in dry.items()
                                  if k not in ("rows", "table")},
+                      "dryrun_mesh": dry_mesh,
                       "examples": examples}), flush=True)
     print(json.dumps({"kernels": [{k: v for k, v in r.items()
                                    if k not in ("checked", "sass",

@@ -4,8 +4,11 @@
 The reference parses the XLA HLO text of a compiled step for its
 collectives. The port has no HLO: a sharded step issues its collectives
 itself (`repro_torch.models.sharding`), so `COUNTER` records each one as
-it is issued, with its kind, its result bytes and its group size, and
-nothing has to be parsed. XLA HLO parsing is therefore not ported; the
+it is issued, with its kind, its result bytes, its group size, its mesh
+axis and the stride of its group in the mesh's row-major rank order (so
+the roofline can tell a group inside one host from one across hosts),
+and nothing has to be parsed. An abstract mesh (`sharding.Mesh.abstract`)
+records the same collectives without issuing them. XLA HLO parsing is therefore not ported; the
 dtype table, `_shape_bytes` (bytes of an HLO type string) and the ring
 cost model `_wire_bytes` are the reference's, so both packages turn one
 collective into the same bytes on the wire:
@@ -19,8 +22,9 @@ collective into the same bytes on the wire:
 `COUNTER` counts only inside ``with COUNTER.on():``; elsewhere a
 collective pays for one attribute read and records nothing, so timed
 steps compute no accounting. `CollectiveCounter.summary` gives the
-total wire bytes per device, by kind: the numerator of the roofline's
-``collective_s`` (`repro_torch.launch.roofline.collective_seconds`).
+total wire bytes per device, by kind (the reference's record) and by
+mesh axis: the numerators of the roofline's ``collective_s``
+(`repro_torch.launch.roofline`).
 A collective over a group of one device is not issued and not counted.
 """
 from __future__ import annotations
@@ -73,7 +77,8 @@ def _wire_bytes(kind: str, result_bytes: int, n: int) -> float:
 
 class CollectiveCounter:
     """The collectives issued inside `on()`: (kind, result bytes, group
-    size) each, in issue order, as seen by this process (one device)."""
+    size, mesh axis, group stride) each, in issue order, as seen by this
+    process (one device)."""
 
     def __init__(self):
         self.enabled = False
@@ -91,23 +96,32 @@ class CollectiveCounter:
         finally:
             self.enabled = before
 
-    def record(self, kind: str, result_bytes: int, n: int):
+    def record(self, kind: str, result_bytes: int, n: int, axis=None,
+               stride: int = 0):
+        """One collective; `axis` None and `stride` 0 where the caller
+        does not know them."""
         if kind not in COLLECTIVE_KINDS:
             raise ValueError(f"unknown collective {kind!r}")
-        self.records.append((kind, int(result_bytes), int(n)))
+        self.records.append((kind, int(result_bytes), int(n), axis,
+                             int(stride)))
 
     def summary(self) -> dict:
         """{"per_kind": {kind: {"count", "result_bytes", "wire_bytes"}},
-        "total_wire_bytes"}: the reference's `analyze_collectives` record,
-        wire bytes per device."""
-        per_kind = {}
-        for kind, nbytes, n in self.records:
-            row = per_kind.setdefault(kind, {"count": 0, "result_bytes": 0,
-                                             "wire_bytes": 0.0})
-            row["count"] += 1
-            row["result_bytes"] += nbytes
-            row["wire_bytes"] += _wire_bytes(kind, nbytes, n)
-        return {"per_kind": per_kind,
+        "per_axis": {axis: {"count", "result_bytes", "wire_bytes", "n",
+        "stride", and each kind's wire bytes}}, "total_wire_bytes"}: the
+        reference's `analyze_collectives` record and the same bytes by
+        mesh axis, wire bytes per device."""
+        per_kind, per_axis = {}, {}
+        for kind, nbytes, n, axis, stride in self.records:
+            wire = _wire_bytes(kind, nbytes, n)
+            axis_row = per_axis.setdefault(str(axis), {"n": n,
+                                                       "stride": stride})
+            for row in (per_kind.setdefault(kind, {}), axis_row):
+                row["count"] = row.get("count", 0) + 1
+                row["result_bytes"] = row.get("result_bytes", 0) + nbytes
+                row["wire_bytes"] = row.get("wire_bytes", 0.0) + wire
+            axis_row[kind] = axis_row.get(kind, 0.0) + wire
+        return {"per_kind": per_kind, "per_axis": per_axis,
                 "total_wire_bytes": sum(r["wire_bytes"]
                                         for r in per_kind.values())}
 

@@ -1,10 +1,11 @@
-"""Dry-run machinery on one card: every (arch × shape) cell's memory,
-its model FLOPs, and its probed FLOPs and bytes (the single-card
-counterpart of the reference's `src/repro/launch/dryrun_lib.py`).
+"""Dry-run machinery: every (arch × shape) cell's memory, its model
+FLOPs, and its probed FLOPs, bytes and wire bytes, on one card or as
+one device of a mesh (the counterpart of the reference's
+`src/repro/launch/dryrun_lib.py`).
 
 The reference lowers and compiles each cell for a 256/512-chip TPU mesh
-and reads XLA's memory and cost analyses. One card has no mesh to prove
-and no compiler analysis to read, so a cell here is:
+and reads XLA's memory and cost analyses. The port has no compiler
+analysis to read. With no mesh a cell is the whole step on one card:
 
   - `memory_stats`: the bytes of the cell's arguments from the abstract
     trees (meta tensors, nothing allocated): the float32 parameters, for
@@ -29,6 +30,35 @@ and no compiler analysis to read, so a cell here is:
     one AdamW update. A probe whose parameters and state do not fit the
     card is skipped and says so.
 
+With ``mesh=`` (an abstract mesh, `launch.mesh.make_production_mesh`:
+the reference's 16×16 or 2×16×16) a cell is one device of that mesh,
+under the rules override it is given:
+
+  - `mesh_memory_stats`: the device's argument bytes, exactly what the
+    reference's ``memory_stats(compiled)["argument_bytes"]`` counts: for
+    each leaf of the train state (params, AdamW m and v, step: the
+    reference's cells take the default optimizer, no compression) and
+    the batch, or of the params, the decode cache and the tokens, numel
+    ÷ the product of the mesh axes in its PartitionSpec × its element
+    size. Arithmetic over 256 or 512 devices, not a measurement of
+    them; ``fits`` and ``cards_needed``
+    compare it with the card's bytes. As XLA drops the arguments a
+    jitted function does not read, a step's unread parameters
+    (`Model.unread`: Whisper's decode step) are not counted;
+  - the same marginal-layer probes run as one device of the mesh
+    (`_probe_mesh`): the train step of `make_train_step(model, tcfg,
+    mesh)` on `init_state(..., mesh=mesh)` (local shards drawn at their
+    shapes,
+    seeded per coordinate) over the global batch, its microbatches
+    included, or a prefill or decode on the mesh path, with both
+    counters on. It extrapolates the device's FLOPs, bytes and wire
+    bytes by kind and by mesh axis (`launch.collectives.COUNTER`) with
+    the same weights; ``probe_peak_bytes`` is the card's measured peak
+    over the probes (a probe's peak, not the step's). The hand kernels
+    run on the local heads and channels; their calls equal their
+    launches. The collectives issue nothing: their records are exact,
+    the values after them are not the mesh's.
+
 `HW` holds the H100 SXM data-sheet peaks; `hardware(device)` adds the
 card's bytes, read at run time (80e9 where no card is present).
 """
@@ -48,10 +78,15 @@ from torch.utils.flop_counter import FlopCounterMode
 from repro_torch.config import (DECODE, ENCDEC, HYBRID, MOE, PREFILL, SHAPES,
                                 TRAIN, OptimizerConfig, TrainConfig)
 from repro_torch.configs import get_arch
+from repro_torch.data.pipeline import shard_batch
 from repro_torch.device import resolve_device
 from repro_torch.kernels.cost import COUNTER, attention_pairs
+from repro_torch.launch import collectives as COLL
+from repro_torch.launch.mesh import describe
 from repro_torch.models.api import get_model
-from repro_torch.models.params import DTYPES, flatten, tree_map
+from repro_torch.models.params import (DTYPES, flatten, local_bytes,
+                                       local_shape, tree_map, unflatten)
+from repro_torch.models.sharding import mesh_axes, rules_ctx
 from repro_torch.train import loop as TL
 from repro_torch.train import optimizer as OPT
 
@@ -143,6 +178,59 @@ def memory_stats(cfg, shape_name: str, hbm_bytes: float,
     return out
 
 
+def _local_input_bytes(model, shape, mesh) -> int:
+    specs, pspecs = model.input_specs(shape), model.input_pspecs(shape, mesh)
+    return sum(math.prod(local_shape(t.shape, pspecs[k], mesh))
+               * t.element_size() for k, t in specs.items())
+
+
+def mesh_memory_stats(cfg, shape_name, mesh, hbm_bytes: float) -> dict:
+    """One device's argument bytes of a cell on `mesh` (a `Mesh`, or
+    {axis: size} for device 0; under the rules in force: call it inside
+    `rules_ctx`), by part, with ``fits`` and ``cards_needed`` against
+    `hbm_bytes` (module docstring)."""
+    shape = _shape(shape_name)
+    model = get_model(cfg)
+    unread = model.unread(shape.kind)
+    specs = {p: s for p, s in flatten(model.specs())
+             if not p.startswith(unread)}
+    out = {"params_bytes": local_bytes(specs, mesh), "opt_state_bytes": 0,
+           "step_bytes": 0, "cache_bytes": 0,
+           "input_bytes": _local_input_bytes(model, shape, mesh)}
+    if shape.kind == TRAIN:
+        state = TL.state_specs(model, OptimizerConfig())
+        out["opt_state_bytes"] = local_bytes(state["opt"], mesh)
+        out["step_bytes"] = local_bytes({"step": state["step"]}, mesh)
+    elif shape.kind == DECODE:
+        out["cache_bytes"] = local_bytes(model.cache_specs(
+            shape.global_batch, shape.seq_len), mesh)
+    out["argument_bytes"] = sum(out.values())
+    out["fits"] = out["argument_bytes"] <= hbm_bytes
+    out["cards_needed"] = math.ceil(out["argument_bytes"] / hbm_bytes)
+    n = math.prod(mesh_axes(mesh).values())
+    out["note"] = (f"one device of {n}: arithmetic over the shardings, not "
+                   f"a measurement of {n} cards; arguments only (no "
+                   f"activations)")
+    return out
+
+
+def mesh_dir(mesh) -> str:
+    """The folder of a mesh's cell JSONs: the reference's ``single_pod``
+    (16×16) and ``multi_pod`` (2×16×16), else ``mesh_<shape>``."""
+    sizes = dict(mesh.sizes)
+    if sizes == {"data": 16, "model": 16}:
+        return "single_pod"
+    if sizes == {"pod": 2, "data": 16, "model": 16}:
+        return "multi_pod"
+    return "mesh_" + "x".join(str(n) for n in sizes.values())
+
+
+def describe_mesh(mesh) -> dict:
+    return {**describe(mesh), "coords": dict(mesh.coords),
+            "abstract": mesh.is_abstract,
+            "strides": {a: mesh.stride(a) for a in mesh.names}}
+
+
 # ---------------------------------------------------------------------------
 # Counting probes
 # ---------------------------------------------------------------------------
@@ -203,16 +291,18 @@ def count_cost(fn, *args) -> dict:
 
 
 def _combine(parts) -> dict:
-    """Σ weight × cost over (weight, cost) pairs, key by key."""
-    out = {}
-    for w, c in parts:
-        for k, v in c.items():
+    """Σ weight × cost over (weight, cost) pairs, key by key (nested dicts
+    key by key at every level)."""
+    out: dict = {}
+
+    def add(into, cost, w):
+        for k, v in cost.items():
             if isinstance(v, dict):
-                sub = out.setdefault(k, {})
-                for kk, vv in v.items():
-                    sub[kk] = sub.get(kk, 0) + w * vv
+                add(into.setdefault(k, {}), v, w)
             else:
-                out[k] = out.get(k, 0) + w * v
+                into[k] = into.get(k, 0) + w * v
+    for w, c in parts:
+        add(out, c, w)
     return out
 
 
@@ -256,6 +346,66 @@ def _probe_once(cfg, shape, dev, remat, unit, seed=0) -> dict:
     return count_cost(model.decode, params, cache, batch["tokens"][:, 0])
 
 
+def _local_cache(model, batch: int, max_seq: int, mesh):
+    """One device's zero decode cache on `mesh` at its shard shapes, at
+    the last position (``pos`` = max_seq − 1, ``max_seq`` carried as
+    the mesh path's caches carry it)."""
+    specs = model.cache_specs(batch, max_seq)
+    pspecs = dict(flatten(model.cache_pspecs(batch, max_seq, mesh)))
+    leaves = {}
+    for path, spec in flatten(specs):
+        if path != "pos":
+            leaves[path] = torch.zeros(
+                local_shape(spec.shape, pspecs[path], mesh),
+                dtype=DTYPES[spec.dtype], device=mesh.device)
+    leaves["pos"] = max_seq - 1
+    cache = unflatten(specs, leaves)
+    cache["max_seq"] = max_seq
+    return cache
+
+
+def _probe_mesh_once(cfg, shape, mesh, remat, microbatch, count_flops,
+                     seed=0) -> dict:
+    """One probe at `cfg`'s depth as one device of `mesh`: the whole
+    step (train: every microbatch and the update) on the global batch,
+    counted (FLOPs and bytes with `count_flops`; the collectives always)."""
+    model = get_model(cfg)
+    dev = mesh.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == TRAIN:
+        tcfg = TrainConfig(seq_len=S, global_batch=B, remat=remat,
+                           microbatch=microbatch, optimizer=OptimizerConfig())
+        state = TL.init_state(model, tcfg.optimizer, seed, mesh=mesh)
+        fn = TL.make_train_step(model, tcfg, mesh)
+        args = (state, _batch(cfg, shape, B, dev, gen))
+    else:
+        run = mesh.for_batch((B, S))
+        params = model.prepare(model.init_local(run, seed))
+        if shape.kind == PREFILL:
+            batch = shard_batch(_batch(cfg, shape, B, dev, gen), run)
+            fn = lambda p, b: model.prefill(p, b, mesh=run)  # noqa: E731
+            args = (params, batch)
+        else:
+            tok = shard_batch({"tokens": _batch(cfg, shape, B, dev, gen)[
+                "tokens"][:, 0]}, run)["tokens"]
+            fn = lambda p, c, t: model.decode(p, c, t, mesh=run)  # noqa: E731
+            args = (params, _local_cache(model, B, S, run), tok)
+    COLL.COUNTER.reset()
+    with COLL.COUNTER.on():
+        if count_flops:
+            out = count_cost(fn, *args)
+        else:
+            calls0 = dict(COUNTER.calls)
+            with COUNTER.on():
+                fn(*args)
+            out = {"kernel_calls": {k: v - calls0[k]
+                                    for k, v in COUNTER.calls.items()}}
+    out["collectives"] = COLL.COUNTER.summary()
+    COLL.COUNTER.reset()
+    return out
+
+
 def _probe_depths(cfg) -> list:
     """(weight, config) pairs whose weighted sum of probe costs is the
     full depth's cost: the reference's marginal-layer extrapolation."""
@@ -281,10 +431,41 @@ def _probe_depths(cfg) -> list:
 def _fits(cfg, shape_name, unit, hbm_bytes) -> bool:
     """Whether the deepest probe's parameters and state (no
     activations) fit the card."""
-    deepest = max((c for _, c in _probe_depths(cfg)),
-                  key=lambda c: get_model(c).param_count())
-    return memory_stats(deepest, shape_name, hbm_bytes,
+    return memory_stats(_deepest(cfg), shape_name, hbm_bytes,
                         batch=unit)["peak_bytes"] <= hbm_bytes
+
+
+def _deepest(cfg):
+    return max((c for _, c in _probe_depths(cfg)),
+               key=lambda c: get_model(c).param_count())
+
+
+def _probe_mesh(cfg, shape, mesh, remat, microbatch, hbm,
+                count_flops) -> Optional[dict]:
+    """`probe_cost` as one device of `mesh`: every probe's whole step,
+    weighed; None when the deepest probe's per-device arguments do not
+    fit the card."""
+    if not mesh_memory_stats(_deepest(cfg), shape, mesh, hbm)["fits"]:
+        return None
+    cuda = mesh.device.type == "cuda"
+    parts, peak = [], None
+    for w, pcfg in _probe_depths(cfg):
+        if w == 0:
+            continue
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(mesh.device)
+        parts.append((w, _probe_mesh_once(pcfg, shape, mesh, remat,
+                                          microbatch, count_flops)))
+        if cuda:
+            torch.cuda.synchronize(mesh.device)
+            peak = max(peak or 0, torch.cuda.max_memory_allocated(
+                mesh.device))
+            torch.cuda.empty_cache()
+    out = _combine(parts)
+    for a, row in out["collectives"]["per_axis"].items():
+        row.update(n=mesh.size(a), stride=mesh.stride(a))
+    out["probe_peak_bytes"] = peak
+    return out
 
 
 def probe_cost(arch_id: str, shape_name: str, device="cuda", *,
@@ -375,15 +556,28 @@ def train_model_flops(model, batch: int, seq: int) -> float:
 
 def analyze_cell(arch_id: str, shape_name: str, device="cuda", *,
                  cfg=None, remat: str = "full", microbatch: int = 0,
-                 probes: bool = True, save_dir: Optional[str] = None) -> dict:
+                 probes: bool = True, save_dir: Optional[str] = None,
+                 mesh=None, rules_override: Optional[dict] = None) -> dict:
+    """One cell's record (JSON under `save_dir`). With `mesh` (abstract)
+    the cell is one device of it, built and run under
+    ``rules_ctx(rules_override)``: its argument bytes, its wire bytes
+    from the probes always, and with `probes` its FLOPs and bytes."""
     spec = get_arch(arch_id)
+    where = "single_card" if mesh is None else mesh_dir(mesh)
     if shape_name in spec.skip_shapes:
         result = {"arch": arch_id, "shape": shape_name,
                   "status": "skipped", "reason": spec.skip_shapes[shape_name]}
         if save_dir:
-            _save(save_dir, arch_id, shape_name, result)
+            _save(save_dir, arch_id, shape_name, result, where)
         return result
     cfg = cfg if cfg is not None else spec.full
+    if mesh is not None:
+        with rules_ctx(rules_override):
+            result = _analyze_on_mesh(arch_id, shape_name, cfg, mesh, remat,
+                                      microbatch, probes)
+        if save_dir:
+            _save(save_dir, arch_id, shape_name, result, where)
+        return result
     hw = hardware(device)
     _, _, meta = build_cell(arch_id, shape_name, device, cfg=cfg,
                             remat=remat, microbatch=microbatch)
@@ -408,13 +602,47 @@ def analyze_cell(arch_id: str, shape_name: str, device="cuda", *,
     return result
 
 
-def cell_path(save_dir: str, arch_id: str, shape_name: str) -> str:
-    return os.path.join(save_dir, "single_card",
-                        f"{arch_id}__{shape_name}.json")
+def _analyze_on_mesh(arch_id, shape_name, cfg, mesh, remat, microbatch,
+                     probes) -> dict:
+    hw = hardware(mesh.device)
+    shape = _shape(shape_name)
+    model = get_model(cfg)
+    mem = mesh_memory_stats(cfg, shape, mesh, hw["hbm_bytes"])
+    result = {"arch": arch_id, "shape": shape.name, "kind": shape.kind,
+              "device": str(mesh.device), "devices": mesh.n_devices,
+              "mesh": describe_mesh(mesh), "remat": remat,
+              "microbatch": microbatch, "params": model.param_count(),
+              "status": "ok", "card": hw["card"],
+              "card_bytes": hw["hbm_bytes"], "memory": mem,
+              "model_flops_global": model_flops(arch_id, shape, cfg)}
+    if not mem["fits"]:
+        result["probe"] = ("does not fit one card: the per-device "
+                           "arguments exceed it")
+        return result
+    probed = _probe_mesh(cfg, shape, mesh, remat, microbatch,
+                         hw["hbm_bytes"], probes)
+    if probed is None:
+        result["probe"] = ("does not fit one card: the deepest probe's "
+                           "per-device arguments exceed it")
+        return result
+    result["collectives"] = probed.pop("collectives")
+    mem["probe_peak_bytes"] = probed.pop("probe_peak_bytes")
+    result["kernel_calls"] = probed.pop("kernel_calls")
+    if probes:
+        result["cost_probed"] = probed
+    return result
 
 
-def _save(save_dir: str, arch_id: str, shape_name: str, result: dict):
-    path = cell_path(save_dir, arch_id, shape_name)
+def cell_path(save_dir: str, arch_id: str, shape_name: str,
+              where: str = "single_card") -> str:
+    """A cell's JSON: ``where`` is ``single_card``, or a mesh's folder
+    (`mesh_dir`: ``single_pod``, ``multi_pod``)."""
+    return os.path.join(save_dir, where, f"{arch_id}__{shape_name}.json")
+
+
+def _save(save_dir: str, arch_id: str, shape_name: str, result: dict,
+          where: str = "single_card"):
+    path = cell_path(save_dir, arch_id, shape_name, where)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with open(path, "w") as f:
         json.dump(result, f, indent=1)

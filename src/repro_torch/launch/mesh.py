@@ -7,8 +7,15 @@ method) and calls ``torch.distributed.init_process_group`` with the
 address, world size and rank; the meshes are built over those ranks,
 with the reference's axis names and order. The device type is
 explicit: "cuda" (NCCL, rank r on card r of its host) by default, "cpu"
-(gloo) when the caller asks, as the tests do. Importing this module
-touches no device and no process group.
+(gloo) when the caller asks, as the tests do.
+
+`make_production_mesh` and `make_abstract_mesh` build abstract meshes
+(`sharding.Mesh.abstract`): the reference's 16x16 and 2x16x16 meshes
+(or any shape) as one device's share on one card, with no process
+group, for the dry run and the hill-climber. Only these two calls build
+one; `make_mesh` and `make_local_mesh` always build a real mesh over
+the process group. Importing this module touches no device and no
+process group.
 """
 from __future__ import annotations
 
@@ -23,6 +30,30 @@ from repro_torch.models.sharding import Mesh
 # multi-pod = 2 pods.
 SINGLE_POD = MeshConfig(data=16, model=16, pod=1)
 MULTI_POD = MeshConfig(data=16, model=16, pod=2)
+
+
+def make_abstract_mesh(cfg, names=None, device="cuda",
+                       coords=None) -> Mesh:
+    """An abstract mesh (one device's share, no process group) of a
+    `MeshConfig`, or of a shape tuple with its axis `names`; `coords`
+    the device's coordinates (default all 0)."""
+    if isinstance(cfg, MeshConfig):
+        shape, names = cfg.shape(), cfg.axis_names()
+    else:
+        shape = tuple(cfg)
+        if names is None or len(names) != len(shape):
+            raise ValueError(f"mesh shape {shape} needs one name an axis, "
+                             f"got {names}")
+    return Mesh.abstract(dict(zip(names, shape)), coords, device)
+
+
+def make_production_mesh(*, multi_pod: bool = False, device="cuda",
+                         coords=None) -> Mesh:
+    """The reference's production mesh as an abstract mesh: 16x16
+    ("data", "model"), or 2x16x16 ("pod", "data", "model")."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    names = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_abstract_mesh(shape, names, device, coords)
 
 
 def mesh_of_ranks(device_type: str, ranks, names) -> Mesh:

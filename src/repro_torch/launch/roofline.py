@@ -1,16 +1,24 @@
-"""Roofline of the single-card dry run (`repro_torch.launch.dryrun`'s
-JSONs), the reference's `src/repro/launch/roofline.py` on one H100.
+"""Roofline of the dry run (`repro_torch.launch.dryrun`'s JSONs), the
+reference's `src/repro/launch/roofline.py` on H100s.
 
-Terms per (arch × shape) cell, in seconds a step on one card:
+Terms per (arch × shape) cell, in seconds a step on one card (one
+device of the mesh for a mesh's cells):
 
   compute_s    = probed FLOPs ÷ 989 TFLOP/s (dense bf16; the marginal-
                  layer probes count every layer, and the hand kernels'
                  work through `kernels.cost`)
   memory_s     = probed bytes ÷ 3.35 TB/s (HBM)
-  collective_s = wire bytes per device ÷ 450 GB/s (`collective_seconds`:
-                 NVLink 4 of the H100 SXM, 900 GB/s both directions
-                 together, a data-sheet figure, not a measurement); the
-                 single-card cells (``devices`` = 1) exchange nothing, 0.0
+  collective_s = Σ over the mesh axes of the axis's wire bytes per
+                 device ÷ the bandwidth of the link its groups cross
+                 (`axis_seconds`): NVLink 4, 450 GB/s a direction, for a
+                 group inside one host of 8 cards; 50 GB/s for a group
+                 that spans hosts (one 400 Gb/s NDR InfiniBand port a
+                 card, NVIDIA's DGX H100 data sheet). Both are data-sheet
+                 figures, not measurements: a 16-wide ring over 8-card
+                 hosts is bounded by the inter-host link. Records without
+                 an axis go over NVLink (`collective_seconds`, its meaning
+                 unchanged); the single-card cells (``devices`` = 1)
+                 exchange nothing, 0.0
 
 with MODEL_FLOPS = 6·N·D (train) / 2·N·D (serve), N the active
 parameters; the useful ratio MODEL_FLOPS / probed FLOPs; the dominant
@@ -30,7 +38,7 @@ second pass.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.roofline [--save-dir D]
-      [--csv out.csv]
+      [--mesh card|single|multi] [--csv out.csv]
 """
 from __future__ import annotations
 
@@ -48,6 +56,29 @@ from repro_torch.launch.dryrun_lib import HW, cell_path
 # directions together (NVIDIA's data sheet), so 450 GB/s each way. A ring
 # collective's wire bytes per device leave the card one way.
 NVLINK_BW = 450e9
+# between hosts: one 400 Gb/s NDR InfiniBand port per card (DGX H100 data
+# sheet: eight ConnectX-7 ports for eight cards), 50 GB/s each way
+INTER_HOST_BW = 50e9
+CARDS_PER_HOST = 8
+
+
+def link_bandwidth(n: int, stride: int) -> float:
+    """The per-direction bandwidth of a group of `n` devices `stride`
+    ranks apart in row-major rank order, hosts of `CARDS_PER_HOST`
+    consecutive ranks: NVLink when the group's aligned block of n·stride
+    ranks lies inside one host, else the inter-host link."""
+    span = n * max(stride, 1)
+    if span <= CARDS_PER_HOST and CARDS_PER_HOST % span == 0:
+        return NVLINK_BW
+    return INTER_HOST_BW
+
+
+def axis_seconds(per_axis: dict) -> float:
+    """Σ wire bytes ÷ `link_bandwidth` over a summary's ``per_axis``
+    rows (`collectives.CollectiveCounter.summary`); a row of group size
+    ≤ 1 costs nothing."""
+    return sum(row["wire_bytes"] / link_bandwidth(row["n"], row["stride"])
+               for row in per_axis.values() if row.get("n", 2) > 1)
 
 
 def collective_seconds(wire_bytes_per_device: float, devices: int) -> float:
@@ -70,10 +101,12 @@ NOTES = {
 }
 
 
-def load_cells(save_dir: str) -> list:
+def load_cells(save_dir: str, where: str = "single_card") -> list:
+    """The cells' JSONs under `save_dir`/`where` (``single_card``,
+    ``single_pod``, ``multi_pod``), in `all_cells` order."""
     rows = []
     for arch, shape, _ in all_cells():
-        path = cell_path(save_dir, arch, shape)
+        path = cell_path(save_dir, arch, shape, where)
         if os.path.exists(path):
             with open(path) as f:
                 rows.append(json.load(f))
@@ -85,11 +118,12 @@ def roofline_row(res: dict, step_time_s: Optional[float] = None) -> dict:
         return {"arch": res["arch"], "shape": res["shape"],
                 "status": res.get("reason", res.get("status"))}
     mem = res["memory"]
+    peak = mem.get("peak_bytes", mem.get("argument_bytes"))
     row = {"arch": res["arch"], "shape": res["shape"], "status": "ok",
            "devices": res["devices"],
            "model_flops_global": res["model_flops_global"],
-           "peak_hbm_gb": mem["peak_bytes"] / 1e9,
-           "fits_hbm": mem["peak_bytes"] <= res["card_bytes"],
+           "peak_hbm_gb": peak / 1e9,
+           "fits_hbm": peak <= res["card_bytes"],
            "cards_needed": mem["cards_needed"]}
     probed = res.get("cost_probed")
     if probed is None:
@@ -97,9 +131,11 @@ def roofline_row(res: dict, step_time_s: Optional[float] = None) -> dict:
     else:
         compute_s = probed["flops"] / HW["peak_flops_bf16"]
         memory_s = probed["bytes_accessed"] / HW["hbm_bw"]
-        collective_s = collective_seconds(
-            res.get("collectives", {}).get("total_wire_bytes", 0.0),
-            res["devices"])
+        coll = res.get("collectives", {})
+        collective_s = (axis_seconds(coll["per_axis"]) if "per_axis" in coll
+                        else collective_seconds(
+                            coll.get("total_wire_bytes", 0.0),
+                            res["devices"]))
         terms = {"compute": compute_s, "memory": memory_s,
                  "collective": collective_s}
         dominant = max(terms, key=terms.get)
@@ -145,9 +181,12 @@ def markdown_table(rows: list) -> str:
 def main(argv=None) -> int:
     args = parse_cli(argv if argv is not None else sys.argv[1:])
     save_dir = os.path.abspath(args.get("save-dir", DEFAULT_SAVE))
-    rows = [roofline_row(r) for r in load_cells(save_dir)]
+    where = {"card": "single_card", "single": "single_pod",
+             "multi": "multi_pod"}[args.get("mesh", "card")]
+    rows = [roofline_row(r) for r in load_cells(save_dir, where)]
     print(markdown_table(rows))
-    out_json = os.path.join(save_dir, "roofline.json")
+    out_json = os.path.join(save_dir, "" if where == "single_card"
+                            else where, "roofline.json")
     with open(out_json, "w") as f:
         json.dump(rows, f, indent=1)
     print(f"\nwrote {out_json} "

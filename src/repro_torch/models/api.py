@@ -59,6 +59,11 @@ class Model:
         """The parameters' shapes and dtypes on the meta device."""
         return PT.abstract_params(self.specs())
 
+    def init_local(self, mesh, generator=None):
+        """One device's parameter shards on `mesh`, drawn at their shapes
+        (`params.init_local`; an abstract mesh's dry run)."""
+        return PT.init_local(self.specs(), mesh, generator)
+
     def pspecs(self, mesh, overrides=None):
         return PT.param_pspecs(self.specs(), mesh, overrides)
 
@@ -67,6 +72,13 @@ class Model:
 
     def param_count(self) -> int:
         return PT.param_count_tree(self.specs())
+
+    def unread(self, kind: str) -> tuple:
+        """Path prefixes of the parameters a step of `kind` does not read
+        (Whisper's decode step reads neither its encoder nor the
+        cross-attention's key and value projections)."""
+        return getattr(self.mod, "DECODE_UNREAD", ()) if kind == DECODE \
+            else ()
 
     def prepare(self, params):
         return self.mod.prepare(self.cfg, params)

@@ -67,6 +67,13 @@ def dec_layer_specs(cfg: ModelConfig) -> dict:
     }
 
 
+# the parameters a decode step does not read: the encoder (its memory is
+# in the cross-attention cache) and the cross-attention's key and value
+# projections (their outputs are that cache)
+DECODE_UNREAD = ("enc_layers", "enc_norm", "dec_layers/xattn/wk",
+                 "dec_layers/xattn/wv")
+
+
 def specs(cfg: ModelConfig) -> dict:
     out = {
         "embed": ParamSpec((cfg.vocab_size, cfg.d_model), ("tp", "fsdp"),

@@ -31,7 +31,18 @@ axis sizes, this process's coordinates and, for a step, the axes that
 split its batch rows (`Mesh.for_batch`): over those axes the processes
 hold distinct data, so the gradients of what they share are summed.
 Every collective is recorded by `repro_torch.launch.collectives.COUNTER`
-while it is on; a collective over one device is skipped.
+while it is on, with its mesh axis and the stride of its group in the
+mesh's row-major rank order; a collective over one device is skipped.
+
+`Mesh.abstract` is a mesh without a process group: the axis sizes, one
+device's coordinates and an explicit device. It runs one device's share
+of a step on one card (the dry run on the reference's 256- and
+512-device meshes): every local shard has its real size, and each
+collective issues nothing but returns what a real group would return in
+shape and dtype (`all_gather` the local shard repeated, `reduce_scatter`
+this coordinate's chunk, `all_reduce` a copy) and records itself as the
+real one would. The values are finite but not the mesh's; the records
+are exact, since no collective's size depends on values.
 """
 from __future__ import annotations
 
@@ -61,23 +72,36 @@ RULES: dict = {
 }
 
 _TLS = threading.local()
+_UNSET = object()
+# the innermost `rules_ctx` of any thread, for threads that entered none:
+# autograd's device worker threads, which run a CUDA backward (and a
+# checkpointed block's recompute inside it) while the caller waits
+_PROCESS = {"overrides": None}
 
 
 @contextlib.contextmanager
 def rules_ctx(overrides: Optional[dict]):
-    """Remap logical axes for every spec computed inside (this thread),
-    e.g. {"tp": (), "fsdp": (), "batch": ("pod", "data", "model")} lays a
-    model out pure data-parallel without touching model code."""
-    prev = getattr(_TLS, "overrides", None)
-    _TLS.overrides = dict(overrides) if overrides else None
+    """Remap logical axes for every spec computed inside (this thread,
+    and the autograd threads that run its backward), e.g. {"tp": (),
+    "fsdp": (), "batch": ("pod", "data", "model")} lays a model out pure
+    data-parallel without touching model code."""
+    prev = getattr(_TLS, "overrides", _UNSET)
+    prev_process = _PROCESS["overrides"]
+    _TLS.overrides = _PROCESS["overrides"] = (dict(overrides) if overrides
+                                              else None)
     try:
         yield
     finally:
-        _TLS.overrides = prev
+        _PROCESS["overrides"] = prev_process
+        if prev is _UNSET:
+            del _TLS.overrides
+        else:
+            _TLS.overrides = prev
 
 
 def _ctx_overrides() -> Optional[dict]:
-    return getattr(_TLS, "overrides", None)
+    own = getattr(_TLS, "overrides", _UNSET)
+    return _PROCESS["overrides"] if own is _UNSET else own
 
 
 class PartitionSpec(tuple):
@@ -179,9 +203,37 @@ class Mesh:
         coord = device_mesh.get_coordinate()
         self.coords = None if coord is None else dict(zip(self.names, coord))
         self.batch: tuple = ()
+        self._device = None
+
+    @classmethod
+    def abstract(cls, sizes: dict, coords: Optional[dict] = None,
+                 device="cuda") -> "Mesh":
+        """A mesh of axis `sizes` (name -> size, in mesh order) without a
+        process group: one device's share at `coords` (default every
+        axis 0) on `device`. Its collectives issue nothing (see the
+        module docstring); `group` raises."""
+        from repro_torch.device import resolve_device
+        out = cls.__new__(cls)
+        out.device_mesh = None
+        out.names = tuple(sizes)
+        out.sizes = {a: int(n) for a, n in sizes.items()}
+        out.coords = {a: int((coords or {}).get(a, 0)) for a in out.names}
+        for a, i in out.coords.items():
+            if not 0 <= i < out.sizes[a]:
+                raise ValueError(f"coordinate {a}={i} is outside the axis "
+                                 f"of {out.sizes[a]}")
+        out.batch = ()
+        out._device = resolve_device(device)
+        return out
+
+    @property
+    def is_abstract(self) -> bool:
+        return self.device_mesh is None
 
     @property
     def device_type(self) -> str:
+        if self.is_abstract:
+            return self._device.type
         return self.device_mesh.device_type
 
     @property
@@ -194,6 +246,8 @@ class Mesh:
 
     @property
     def device(self) -> torch.device:
+        if self.is_abstract:
+            return self._device
         if self.device_type == "cuda":
             return torch.device("cuda", torch.cuda.current_device())
         return torch.device(self.device_type)
@@ -204,7 +258,15 @@ class Mesh:
     def index(self, axis: str) -> int:
         return self.coords[axis] if axis in self.sizes else 0
 
+    def stride(self, axis: str) -> int:
+        """The rank distance between neighbours along `axis` in the
+        mesh's row-major rank order: the product of the later axes."""
+        names = self.names
+        return math.prod(self.sizes[a] for a in names[names.index(axis) + 1:])
+
     def group(self, axis: str):
+        if self.is_abstract:
+            raise RuntimeError("an abstract mesh has no process group")
         return self.device_mesh.get_group(axis)
 
     def for_batch(self, shape: Sequence[int]) -> "Mesh":
@@ -220,7 +282,8 @@ class Mesh:
         return logical_to_pspec(logical, shape, self)
 
     def __repr__(self):
-        return f"Mesh({self.sizes}, batch={self.batch})"
+        kind = "abstract " if self.is_abstract else ""
+        return f"{kind}Mesh({self.sizes}, batch={self.batch})"
 
 
 # ---------------------------------------------------------------------------
@@ -231,43 +294,56 @@ _AG = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
 _RS = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
-def _record(kind: str, t: torch.Tensor, n: int):
+def _record(kind: str, t: torch.Tensor, n: int, axis=None, stride=0):
     if COUNTER.enabled:
-        COUNTER.record(kind, t.numel() * t.element_size(), n)
+        COUNTER.record(kind, t.numel() * t.element_size(), n, axis, stride)
 
 
 def all_gather(x: torch.Tensor, dim: int, mesh: Mesh, axis: str):
-    """Concatenate the axis's shards of dimension `dim`, in axis order."""
+    """Concatenate the axis's shards of dimension `dim`, in axis order
+    (on an abstract mesh, the local shard n times)."""
     n = mesh.size(axis)
     if n == 1:
         return x
     xt = x.movedim(dim, 0).contiguous()
-    out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
-    _AG(out, xt, group=mesh.group(axis))
-    _record("all-gather", out, n)
+    if mesh.is_abstract:
+        out = xt.repeat((n,) + (1,) * (xt.dim() - 1))
+    else:
+        out = xt.new_empty((n * xt.shape[0],) + tuple(xt.shape[1:]))
+        _AG(out, xt, group=mesh.group(axis))
+    _record("all-gather", out, n, axis, mesh.stride(axis))
     return out.movedim(0, dim).contiguous()
 
 
 def reduce_scatter(x: torch.Tensor, dim: int, mesh: Mesh, axis: str):
-    """Sum over the axis, keeping this process's chunk of `dim`."""
+    """Sum over the axis, keeping this process's chunk of `dim` (on an
+    abstract mesh, the chunk of `x` itself)."""
     n = mesh.size(axis)
     if n == 1:
         return x
     xt = x.movedim(dim, 0).contiguous()
-    out = xt.new_empty((xt.shape[0] // n,) + tuple(xt.shape[1:]))
-    _RS(out, xt, op=dist.ReduceOp.SUM, group=mesh.group(axis))
-    _record("reduce-scatter", out, n)
+    size = xt.shape[0] // n
+    if mesh.is_abstract:
+        out = xt[mesh.index(axis) * size:(mesh.index(axis) + 1) * size]
+        out = out.contiguous()
+    else:
+        out = xt.new_empty((size,) + tuple(xt.shape[1:]))
+        _RS(out, xt, op=dist.ReduceOp.SUM, group=mesh.group(axis))
+    _record("reduce-scatter", out, n, axis, mesh.stride(axis))
     return out.movedim(0, dim).contiguous()
 
 
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, op=None):
-    """Sum (or `op`) over the axis; `x` is left as it is."""
+    """Sum (or `op`) over the axis; `x` is left as it is (on an abstract
+    mesh, a copy of `x`)."""
     n = mesh.size(axis)
     if n == 1:
         return x
     out = x.contiguous().clone()
-    dist.all_reduce(out, op=op or dist.ReduceOp.SUM, group=mesh.group(axis))
-    _record("all-reduce", out, n)
+    if not mesh.is_abstract:
+        dist.all_reduce(out, op=op or dist.ReduceOp.SUM,
+                        group=mesh.group(axis))
+    _record("all-reduce", out, n, axis, mesh.stride(axis))
     return out
 
 

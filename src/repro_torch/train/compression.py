@@ -12,15 +12,20 @@ threshold keeps all the tied entries.
 
 On a mesh (``shardings`` given: the trees hold local shards) int8's
 per-leaf scale is the whole leaf's max (`sharding.whole_leaf_stats`),
-so every process quantizes a leaf on one grid; top-k's whole-leaf
-threshold is not ported to a mesh and raises.
+so every process quantizes a leaf on one grid; top-k's threshold is the
+whole leaf's k-th largest |g| by an exact distributed selection
+(`_whole_leaf_kth`), so every process keeps exactly the entries the
+unsharded rule keeps.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from repro_torch.models.params import flatten, tree_map, unflatten
-from repro_torch.models.sharding import whole_leaf_stats
+from repro_torch.models.sharding import (all_gather, spec_axes,
+                                         whole_leaf_stats)
 
 F32 = torch.float32
 
@@ -28,13 +33,6 @@ F32 = torch.float32
 def ef_init(params: dict) -> dict:
     return tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
                                           device=p.device), params)
-
-
-def _per_leaf(one, grads, ef) -> tuple:
-    e = dict(flatten(ef))
-    out = {path: one(g, e[path]) for path, g in flatten(grads)}
-    return (unflatten(grads, {k: o[0] for k, o in out.items()}),
-            unflatten(grads, {k: o[1] for k, o in out.items()}))
 
 
 # ---------------------------------------------------------------------------
@@ -69,21 +67,47 @@ def compress_int8(grads: dict, ef: dict, shardings=None) -> tuple:
 # top-k sparsification (per tensor)
 # ---------------------------------------------------------------------------
 
+def _whole_leaf_kth(mag: torch.Tensor, k: int, sharding) -> torch.Tensor:
+    """The k-th largest entry of a whole leaf of magnitudes, given this
+    process's shard `mag` and its `NamedSharding`. Each shard offers its
+    top min(k, shard numel) values; these are all-gathered over the axes
+    that split the leaf (replicas along the other axes hold the same
+    shard and are not gathered twice). Every entry of the whole leaf's
+    top k is in its own shard's top k, so the k-th largest of the union
+    is the whole leaf's: the same value, exactly."""
+    flat = mag.reshape(-1)
+    cand = torch.topk(flat, min(k, flat.shape[0])).values
+    for entry in sharding.spec:
+        for a in spec_axes(entry):
+            cand = all_gather(cand, 0, sharding.mesh, a)
+    return torch.topk(cand, k).values[-1]
+
+
 def compress_topk(grads: dict, ef: dict, ratio: float = 0.05,
                   shardings=None) -> tuple:
-    """Keep the largest-|g| `ratio` fraction per tensor; error feedback."""
-    if shardings is not None:
-        raise NotImplementedError("top-k compression takes a whole-leaf "
-                                  "threshold, which is not ported to a "
-                                  "mesh; use int8 or none")
-    def one(g, e):
-        gf = g.to(F32) + e
-        flat = gf.reshape(-1)
-        k = max(1, int(flat.shape[0] * ratio))
-        thresh = torch.topk(torch.abs(flat), k).values[-1]
-        kept = torch.where(torch.abs(gf) >= thresh, gf, 0.0)
-        return kept, gf - kept
-    return _per_leaf(one, grads, ef)
+    """Keep the largest-|g| `ratio` fraction per tensor; error feedback.
+    On a mesh (`shardings`: the leaves' `NamedSharding`s, the trees
+    local shards) k counts the whole leaf's entries and the threshold is
+    the whole leaf's (`_whole_leaf_kth`)."""
+    sh = dict(flatten(shardings)) if shardings is not None else {}
+    e = dict(flatten(ef))
+    out = {}
+    for path, g in flatten(grads):
+        gf = g.to(F32) + e[path]
+        mag = torch.abs(gf)
+        if path in sh:
+            numel = math.prod(gf.shape) * math.prod(
+                sh[path].mesh.size(a) for x in sh[path].spec
+                for a in spec_axes(x))
+            thresh = _whole_leaf_kth(mag, max(1, int(numel * ratio)),
+                                     sh[path])
+        else:
+            k = max(1, int(gf.numel() * ratio))
+            thresh = torch.topk(mag.reshape(-1), k).values[-1]
+        kept = torch.where(mag >= thresh, gf, 0.0)
+        out[path] = (kept, gf - kept)
+    return (unflatten(grads, {k: o[0] for k, o in out.items()}),
+            unflatten(grads, {k: o[1] for k, o in out.items()}))
 
 
 def wire_bytes_ratio(scheme: str, topk_ratio: float = 0.05) -> float:

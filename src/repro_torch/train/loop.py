@@ -87,10 +87,15 @@ def init_state(model: Model, opt_cfg: OptimizerConfig, seed=0,
     """A fresh state on `device`; `seed` an int or a torch.Generator. On
     a mesh, the same state placed onto it: the full parameters are drawn
     on the mesh's device and each process keeps its shard of them, its
-    zero moments (and error feedback) made at the shard's shape."""
+    zero moments (and error feedback) made at the shard's shape. On an
+    abstract mesh the shards are drawn directly (`Model.init_local`):
+    one device's share of a model that no card holds whole."""
     dev = mesh.device if mesh is not None else resolve_device(device)
-    params = model.init(seed, device=dev)
-    if mesh is not None:
+    if mesh is not None and mesh.is_abstract:
+        params = model.init_local(mesh, seed)
+    else:
+        params = model.init(seed, device=dev)
+    if mesh is not None and not mesh.is_abstract:
         params = shard_tree(params, model.shardings(mesh))
     state = {"params": params, "opt": OPT.adamw_init(params),
              "step": torch.zeros((), dtype=torch.int32, device=dev)}

@@ -44,7 +44,9 @@ from repro_torch.convert import from_reference_state  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
 from repro_torch.launch.collectives import _wire_bytes  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
+from repro_torch.models import sharding as SH  # noqa: E402
 from repro_torch.models.params import flatten, tree_map  # noqa: E402
+from repro_torch.train import compression as COMP  # noqa: E402
 from repro_torch.train import loop as TL  # noqa: E402
 from test_torch_train import (TIE_WINDOW, _compare_state,  # noqa: E402
                               _int8_tie_sites)
@@ -126,11 +128,22 @@ def reference():
         s, m = step8(s8[-1], jax.tree.map(jnp.asarray, b))
         s8.append(s)
         losses8.append(float(m["loss"]))
+    optk = RefOptCfg(**R.opt_kw("topk"))
+    stepk = jax.jit(REF_TL.make_train_step(
+        model, RefTrainCfg(**R.train_kw(), optimizer=optk)))
+    sk = [REF_TL.init_state(model, optk, jax.random.PRNGKey(0))]
+    lossesk = []
+    for b in batches:
+        s, m = stepk(sk[-1], jax.tree.map(jnp.asarray, b))
+        sk.append(s)
+        lossesk.append(float(m["loss"]))
     return {"batches": batches, "state0": _np_tree(state0),
             "steps": _np_tree(state), "metrics": metrics,
             "loss": float(loss), "grads": _np_tree(grads),
             "int8": [jax.tree.map(np.asarray, s) for s in s8],
-            "int8_losses": losses8}
+            "int8_losses": losses8,
+            "topk": [jax.tree.map(np.asarray, s) for s in sk],
+            "topk_losses": lossesk}
 
 
 def _write_inputs(out: Path, ref):
@@ -140,6 +153,8 @@ def _write_inputs(out: Path, ref):
     np.savez(out / "state0.npz", **ref["state0"])
     for i, s in enumerate(ref["int8"][:-1]):
         np.savez(out / f"int8_state{i}.npz", **_np_tree(s))
+    for i, s in enumerate(ref["topk"][:-1]):
+        np.savez(out / f"topk_state{i}.npz", **_np_tree(s))
     model = get_model(R.model_cfg((3, 1)))
     np.savez(out / "state0_heads3.npz", **_torch_flat(TL.init_state(
         model, OptimizerConfig(**R.opt_kw()), 0, "cpu")))
@@ -283,6 +298,115 @@ def test_int8_steps_on_the_mesh_equal_the_reference(i, reference, four,
     assert abs(loss - want) <= 1e-5 * abs(want)
 
 
+# an entry whose |gf| lies within TOPK_WINDOW x the leaf's max |gf| of the
+# top-k threshold may be kept on one side and not the other: the sharded
+# and the reference's gradients differ in their last float32 bits
+TOPK_WINDOW = 1e-5
+
+
+def _topk_tie_sites(monkeypatch):
+    """Record, per parameter path, the entries whose top-k input |gf| lies
+    within TOPK_WINDOW x max |gf| of the leaf's threshold, by observing
+    the port's unsharded `compress_topk` calls."""
+    ties = {}
+    real = COMP.compress_topk
+
+    def observed(grads, ef, ratio=0.05, shardings=None):
+        e = dict(flatten(ef))
+        for path, g in flatten(grads):
+            mag = (g.float() + e[path]).abs()
+            k = max(1, int(mag.numel() * ratio))
+            thresh = torch.topk(mag.reshape(-1), k).values[-1]
+            near = (mag - thresh).abs() <= TOPK_WINDOW * mag.max()
+            ties[path] = ties.get(path, torch.zeros_like(near)) | near
+        return real(grads, ef, ratio, shardings)
+    monkeypatch.setattr(COMP, "compress_topk", observed)
+    return ties
+
+
+@pytest.mark.parametrize("i", range(N_STEPS))
+def test_topk_steps_on_the_mesh_equal_the_reference(i, reference, four,
+                                                    monkeypatch):
+    """top-k compression on (2, 2), one step at a time from the
+    reference's state of step `i` (the reference's top-k step, whose
+    threshold is each whole leaf's k-th largest |g|): params, m, v and
+    the error feedback within 1e-5 (allclose), save for the entries
+    within TOPK_WINDOW of the threshold in the port's own unsharded step
+    from that state (counted: at most 1e-3 of the entries), which may be
+    kept on one side only; the loss within 1e-5 relative."""
+    ties = _topk_tie_sites(monkeypatch)
+    cfg = R.model_cfg()
+    model = get_model(cfg)
+    opt = OptimizerConfig(**R.opt_kw("topk"))
+    step = TL.make_train_step(model, TrainConfig(**R.train_kw(),
+                                                 optimizer=opt))
+    step(from_reference_state(cfg, reference["topk"][i], "cpu"),
+         {k: torch.as_tensor(v) for k, v in reference["batches"][i].items()})
+    n = sum(t.numel() for t in ties.values())
+    assert sum(int(t.sum()) for t in ties.values()) <= 1e-3 * n
+    state = tree_map(torch.from_numpy, _unflat(_load(four / f"topk_{i}.npz")))
+    _compare_state(state, reference["topk"][i + 1], ("params", "opt", "ef"),
+                   ties, f"topk step {i}")
+    loss = json.loads((four / f"topk_{i}.json").read_text())["loss"]
+    want = reference["topk_losses"][i]
+    assert abs(loss - want) <= 1e-5 * abs(want)
+
+
+def test_sharded_topk_equals_the_unsharded_one_bit_for_bit(four):
+    """`compress_topk(..., shardings=)` on (2, 2) on local shards of a
+    seeded tree (leaves split over no axis, one, two, and one whose k-th
+    largest |g| is tied across shards) gives the unsharded function on
+    the whole tensors bit for bit: kept entries and error feedback; every
+    tie at the threshold is kept. The threshold's gathers are recorded:
+    one all-gather per axis that splits a leaf."""
+    g, e = R.topk_tree()
+    kept, ef = COMP.compress_topk(
+        {k: torch.from_numpy(v) for k, v in g.items()},
+        {k: torch.from_numpy(v) for k, v in e.items()}, R.TOPK_RATIO)
+    got = _load(four / "topk_unit.npz")
+    for k in R.TOPK_LEAVES:
+        for name, want in (("kept", kept[k]), ("ef", ef[k])):
+            a = got[f"{name}/{k}"]
+            assert a.dtype == np.float32 and np.array_equal(
+                a, want.numpy()), (name, k)
+    assert int((got["kept/ties"] != 0).sum()) == 20
+    records = json.loads((four / "topk_unit.json").read_text())
+    n_axes = sum(len(SH.spec_axes(x)) for _, spec in R.TOPK_LEAVES.values()
+                 for x in spec)
+    assert [r[0] for r in records] == ["all-gather"] * n_axes
+
+
+@pytest.mark.parametrize("shape", ["2x2", "4x1"])
+@pytest.mark.parametrize("rank", [0, 1])
+def test_abstract_mesh_records_equal_the_real_meshes(shape, rank, reference,
+                                                     four):
+    """The `_collectives` step (one counted train step from the seed) on
+    an abstract mesh (`Mesh.abstract`: no process group, this process
+    alone) at rank `rank`'s coordinates records the same collectives as
+    the real gloo mesh's rank, item for item: kind, result bytes, group
+    size, axis and stride."""
+    from repro_torch.launch import collectives as COLL
+    from repro_torch.launch.mesh import make_abstract_mesh
+    data, model_n = (int(x) for x in shape.split("x"))
+    mesh = make_abstract_mesh((data, model_n), ("data", "model"), "cpu",
+                              {"data": rank // model_n,
+                               "model": rank % model_n})
+    model = get_model(R.model_cfg())
+    opt = OptimizerConfig(**R.opt_kw())
+    step = TL.make_train_step(model, TrainConfig(**R.train_kw(),
+                                                 optimizer=opt), mesh)
+    state = TL.init_state(model, opt, 0, mesh=mesh)
+    COLL.COUNTER.reset()
+    with COLL.COUNTER.on():
+        step(state, reference["batches"][0])
+    got = [list(r) for r in COLL.COUNTER.records]
+    COLL.COUNTER.reset()
+    want = json.loads((four / f"collectives_r{rank}.json").read_text())[
+        shape]["records"]
+    assert len(got) == len(want) > 0
+    assert got == want
+
+
 def _unflat(flat: dict) -> dict:
     out: dict = {}
     for path, v in flat.items():
@@ -376,7 +500,9 @@ def test_carbon_aware_trainer_migrates_across_real_device_subsets(four):
 @pytest.mark.parametrize("shape", ["2x2", "4x1", "1x2", "one"])
 def test_collective_counter_records_what_the_step_issues(shape, four):
     """One step's counter records equal the collectives seen at the
-    torch.distributed boundary (kind, result bytes, group size), and its
+    torch.distributed boundary (kind, result bytes, group size), each
+    with its mesh axis and that axis's stride in row-major rank order,
+    and its
     total wire bytes equal the ring formulas summed over them; on one
     rank nothing is issued and collective_s is 0.0, on more it is > 0."""
     for rank in (0, 1):
@@ -385,8 +511,8 @@ def test_collective_counter_records_what_the_step_issues(shape, four):
             assert shape == "one" and rank == 1
             continue
         r = rep[shape]
-        assert [tuple(x) for x in r["records"]] == [tuple(x)
-                                                    for x in r["seen"]]
+        assert [tuple(x[:3]) for x in r["records"]] == [tuple(x)
+                                                        for x in r["seen"]]
         total = sum(_wire_bytes(k, b, n) for k, b, n in r["seen"])
         assert r["summary"]["total_wire_bytes"] == pytest.approx(total,
                                                                  rel=1e-12)
@@ -394,6 +520,11 @@ def test_collective_counter_records_what_the_step_issues(shape, four):
             assert r["records"] == [] and r["collective_s"] == 0.0
         else:
             assert total > 0 and r["collective_s"] == total / 450e9
+        sizes = ({} if shape == "one" else
+                 dict(zip(("data", "model"), R.shape_of(shape))))
+        for _, _, n, axis, stride in r["records"]:
+            assert n == sizes[axis] and stride == (sizes["model"]
+                                                   if axis == "data" else 1)
 
 
 def test_collective_kinds_follow_the_mesh(four):
@@ -403,10 +534,10 @@ def test_collective_kinds_follow_the_mesh(four):
     over the model axis. (2, 2) adds the model axis's sequence gathers
     and reduce-scatters."""
     rep = json.loads((four / "collectives_r0.json").read_text())
-    kinds = {s: {k for k, _, _ in rep[s]["records"]} for s in ("4x1", "2x2")}
+    kinds = {s: {r[0] for r in rep[s]["records"]} for s in ("4x1", "2x2")}
     assert kinds["4x1"] == {"all-gather", "reduce-scatter", "all-reduce"}
-    assert {n for _, _, n in rep["4x1"]["records"]} == {4}
-    assert {n for _, _, n in rep["2x2"]["records"]} == {2}
+    assert {r[2] for r in rep["4x1"]["records"]} == {4}
+    assert {r[2] for r in rep["2x2"]["records"]} == {2}
     assert (rep["2x2"]["summary"]["total_wire_bytes"]
             != rep["4x1"]["summary"]["total_wire_bytes"])
 

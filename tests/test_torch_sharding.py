@@ -2,7 +2,8 @@
 reference's, in this process (no process group): `logical_to_pspec`
 for every leaf of every config's parameters, train state and inputs on
 the reference's test meshes, with and without the hill-climber's rule
-overrides; the ring cost model and HLO type sizes of
+overrides (the port's `launch.hillclimb` tables, held equal to the
+reference's source); the ring cost model and HLO type sizes of
 `launch/collectives.py` against `launch/hlo_analysis.py`'s."""
 import ast
 from pathlib import Path
@@ -25,6 +26,7 @@ from repro.train import loop as REF_TL  # noqa: E402
 from repro_torch.config import SHAPES, MeshConfig, OptimizerConfig  # noqa: E402
 from repro_torch.configs import get_arch, list_archs  # noqa: E402
 from repro_torch.launch import collectives as COLL  # noqa: E402
+from repro_torch.launch import hillclimb as HC  # noqa: E402
 from repro_torch.models import sharding as SH  # noqa: E402
 from repro_torch.models.api import get_model  # noqa: E402
 from repro_torch.models.params import flatten  # noqa: E402
@@ -48,7 +50,15 @@ def _hillclimb_tables() -> dict:
     return out
 
 
-RULE_SETS = {"default": None, **_hillclimb_tables()}
+RULE_SETS = {"default": None, "PURE_DP": HC.PURE_DP,
+             "SERVE_TP": HC.SERVE_TP}
+
+
+def test_hillclimb_rule_sets_equal_the_references():
+    """The port's hill-climber defines PURE_DP and SERVE_TP as the
+    reference's does."""
+    assert _hillclimb_tables() == {"PURE_DP": HC.PURE_DP,
+                                   "SERVE_TP": HC.SERVE_TP}
 MESHES = [((2, 4), ("data", "model")), ((4, 2), ("data", "model")),
           ((2, 2, 2), ("pod", "data", "model")), ((16, 16), ("data", "model"))]
 
@@ -160,16 +170,21 @@ def test_shape_bytes_equal_the_references(type_str):
 
 def test_counter_records_only_while_on():
     """A collective issued outside ``COUNTER.on()`` is not recorded; one
-    inside is, with its ring wire bytes in the summary."""
+    inside is, with its mesh axis and group stride, and its ring wire
+    bytes in the summary by kind and by axis."""
     import torch
     COLL.COUNTER.reset()
-    SH._record("all-gather", torch.ones(16), 4)
+    SH._record("all-gather", torch.ones(16), 4, "data", 2)
     assert COLL.COUNTER.records == []
     with COLL.COUNTER.on():
-        SH._record("all-gather", torch.ones(16), 4)
+        SH._record("all-gather", torch.ones(16), 4, "data", 2)
     assert not COLL.COUNTER.enabled
+    assert COLL.COUNTER.records == [("all-gather", 64, 4, "data", 2)]
     assert COLL.COUNTER.summary() == {"per_kind": {"all-gather": {
         "count": 1, "result_bytes": 64, "wire_bytes": 48.0}},
+        "per_axis": {"data": {"n": 4, "stride": 2, "count": 1,
+                              "result_bytes": 64, "wire_bytes": 48.0,
+                              "all-gather": 48.0}},
         "total_wire_bytes": 48.0}
     COLL.COUNTER.reset()
     with pytest.raises(ValueError):

@@ -153,6 +153,72 @@ def _int8(rank, out, mesh, model):
               _floats(m))
 
 
+def _topk(rank, out, mesh, model):
+    """top-k steps one at a time from the reference's state of each step."""
+    opt = OptimizerConfig(**opt_kw("topk"))
+    step = TL.make_train_step(model, TrainConfig(**train_kw(),
+                                                 optimizer=opt), mesh)
+    sh = TL.state_shardings(model, opt, mesh)
+    for i, batch in enumerate(_batches(out)):
+        state = shard_tree(_state(model, opt, _load(out / f"topk_state{i}.npz")),
+                           sh)
+        state, m = step(state, batch)
+        _save(rank, out / f"topk_{i}.npz", gather_tree(state, sh),
+              _floats(m))
+
+
+# leaves of `topk_tree`: shape and PartitionSpec on (data 2, model 2): split
+# over no axis, one, two (on one dimension and on two), and one whose k-th
+# largest |g| is tied across shards
+TOPK_LEAVES = {"whole": ((6, 10), (None, None)),
+               "rows": ((8, 6), ("data", None)),
+               "both_dims": ((4, 6, 4), ("model", None, "data")),
+               "one_dim": ((8, 5), (("data", "model"), None)),
+               "ties": ((8, 8), ("model", None))}
+TOPK_RATIO = 0.25
+
+
+def topk_tree(seed=3):
+    """(grads, error feedback) of `TOPK_LEAVES`, made with numpy: normal
+    entries, and in "ties" 10 entries of |g| 5 and 10 of |g| 3 (signs
+    mixed, spread over the rows) among values below 1, so that its
+    threshold (k = 16 of 64) is 3 and all ten 3s are kept."""
+    rng = np.random.default_rng(seed)
+    g = {k: rng.normal(size=sh).astype(np.float32)
+         for k, (sh, _) in TOPK_LEAVES.items()}
+    e = {k: (0.1 * rng.normal(size=sh)).astype(np.float32)
+         for k, (sh, _) in TOPK_LEAVES.items()}
+    ties = (rng.uniform(-0.9, 0.9, size=64)).astype(np.float32)
+    where = rng.permutation(64)
+    ties[where[:10]] = 5.0 * rng.choice([-1, 1], 10)
+    ties[where[10:20]] = 3.0 * rng.choice([-1, 1], 10)
+    g["ties"], e["ties"] = ties.reshape(8, 8), np.zeros((8, 8), np.float32)
+    return g, e
+
+
+def _topk_unit(rank, out):
+    """`compress_topk(..., shardings=)` on (2, 2) on the local shards of
+    `topk_tree`; kept entries and error feedback gathered."""
+    from repro_torch.train.compression import compress_topk
+    mesh = _mesh("2x2")
+    sh = {k: SH.NamedSharding(mesh, spec)
+          for k, (_, spec) in TOPK_LEAVES.items()}
+    g, e = topk_tree()
+    local = lambda tree: {k: sh[k].shard(torch.from_numpy(v))  # noqa: E731
+                          for k, v in tree.items()}
+    COLL.COUNTER.reset()
+    with COLL.COUNTER.on():
+        kept, ef = compress_topk(local(g), local(e), TOPK_RATIO,
+                                 shardings=sh)
+    records = list(COLL.COUNTER.records)
+    whole = {f"{name}/{k}": sh[k].gather(v).numpy()
+             for name, tree in (("kept", kept), ("ef", ef))
+             for k, v in tree.items()}
+    if rank == 0:
+        np.savez(out / "topk_unit.npz", **whole)
+        (out / "topk_unit.json").write_text(json.dumps(records))
+
+
 # ---------------------------------------------------------------------------
 # jobs
 # ---------------------------------------------------------------------------
@@ -291,6 +357,8 @@ def job_four(rank, out):
         if shape == "2x2":
             kept = (state, mesh)
     _int8(rank, out, _mesh("2x2"), model)
+    _topk(rank, out, _mesh("2x2"), model)
+    _topk_unit(rank, out)
     _shard_batch(rank, out)
     _reshard(rank, out, model, *kept)
     _elastic(rank, out, model)
@@ -845,3 +913,37 @@ def job_fam_two(rank, out):
 JOBS = {"four": job_four, "two": job_two, "fault": job_fault,
         "moe_four": job_moe_four, "moe_two": job_moe_two,
         "fam_four": job_fam_four, "fam_two": job_fam_two}
+
+
+# ---------------------------------------------------------------------------
+# The dry run's per-device argument bytes on abstract meshes
+# (`tests/test_torch_dryrun_mesh.py`; the reference's side is
+# `tests/torch_mesh_reference.py OUT argbytes MESH`, eight JAX CPU devices)
+# ---------------------------------------------------------------------------
+
+ARGBYTES_MESHES = {"2x4": ((2, 4), ("data", "model")),
+                   "2x2x2": ((2, 2, 2), ("pod", "data", "model"))}
+ARGBYTES_ARCHS = ("smollm-135m", "olmoe-1b-7b", "mamba2-2.7b",
+                  "recurrentgemma-9b", "whisper-base")
+ARGBYTES_SHAPES = ("train_4k", "decode_32k")
+ARGBYTES_CASES = ([(a, s, "default") for a in ARGBYTES_ARCHS
+                   for s in ARGBYTES_SHAPES]
+                  + [(a, s, r) for a in ARGBYTES_ARCHS[:2]
+                     for r in ("PURE_DP", "SERVE_TP")
+                     for s in ARGBYTES_SHAPES])
+
+
+def reference_rule_sets() -> dict:
+    """{"default": None, "PURE_DP": ..., "SERVE_TP": ...} as the
+    reference's hill-climber defines them, read from its source
+    (importing it would set XLA_FLAGS for the whole process)."""
+    import ast
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro" / "launch"
+           / "hillclimb.py")
+    out = {"default": None}
+    for node in ast.parse(src.read_text()).body:
+        if isinstance(node, ast.Assign) and len(node.targets) == 1:
+            name = getattr(node.targets[0], "id", None)
+            if name in ("PURE_DP", "SERVE_TP"):
+                out[name] = ast.literal_eval(node.value)
+    return out

@@ -18,9 +18,18 @@ its mesh. With ``families ARCH`` (one process a family, run side by
 side) it does the same for Mamba-2, RecurrentGemma or Whisper (Whisper
 also with layer norms): the loss and gradients, prefill and decode
 steps with the whole cache, and the engine's tokens, each under its
-mesh.
+mesh. With ``argbytes MESH`` (eight devices:
+``--xla_force_host_platform_device_count=8``) it compiles the
+dry run's cells `R.ARGBYTES_CASES` at the smoke configs on the mesh
+``2x4`` or ``2x2x2`` (`dryrun_lib.lower_and_compile`, remat "none": the
+arguments do not depend on it) and writes each one's per-device
+``argument_bytes`` to ``argbytes_MESH.json``; where the step does not
+compile (OLMoE's expert-parallel ``shard_map`` under the hill-climber's
+PURE_DP and SERVE_TP), the cell's arguments and shardings from the
+reference's `build_cell`, compiled through a function that reads each.
 """
 import dataclasses
+import json
 import sys
 from pathlib import Path
 
@@ -260,8 +269,43 @@ def main(out: Path):
     (out / "reference.done").write_text("")
 
 
+def main_argbytes(out: Path, name: str):
+    from repro.launch import dryrun_lib as DL
+    from repro.launch import hlo_analysis as HLO
+    shape, axes = R.ARGBYTES_MESHES[name]
+    n = int(np.prod(shape))
+    if len(jax.devices()) < n:
+        raise SystemExit(f"needs XLA_FLAGS=--xla_force_host_platform_device_"
+                         f"count={n} set before JAX starts")
+    mesh = Mesh(np.array(jax.devices()[:n]).reshape(shape), axes)
+    rules = R.reference_rule_sets()
+    got = {}
+    for arch, shape_name, rule in R.ARGBYTES_CASES:
+        kw = dict(cfg=get_arch(arch).smoke, remat="none",
+                  rules_override=rules[rule])
+        try:
+            compiled, _ = DL.lower_and_compile(arch, shape_name, mesh, **kw)
+            how = "step"
+        except ValueError as e:
+            # OLMoE's expert-parallel shard_map does not compile under
+            # PURE_DP or SERVE_TP: the cell's own arguments and shardings
+            # (`build_cell`), compiled through a function that reads each
+            # one
+            _, args, in_sh, _, _ = DL.build_cell(arch, shape_name, mesh, **kw)
+            with mesh:
+                compiled = jax.jit(lambda *a: a, in_shardings=in_sh,
+                                   out_shardings=in_sh).lower(*args).compile()
+            how = f"arguments only; the step raises {e!r}"[:200]
+        got[f"{arch}|{shape_name}|{rule}"] = {
+            "argument_bytes": HLO.memory_stats(compiled)["argument_bytes"],
+            "compiled": how}
+    (out / f"argbytes_{name}.json").write_text(json.dumps(got))
+
+
 if __name__ == "__main__":
-    if len(sys.argv) > 2 and sys.argv[2] == "families":
+    if len(sys.argv) > 2 and sys.argv[2] == "argbytes":
+        main_argbytes(Path(sys.argv[1]), sys.argv[3])
+    elif len(sys.argv) > 2 and sys.argv[2] == "families":
         if len(jax.devices()) < 4:
             raise SystemExit("needs XLA_FLAGS=--xla_force_host_platform_"
                              "device_count=4 set before JAX starts")
