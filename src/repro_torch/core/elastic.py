@@ -35,6 +35,7 @@ from repro_torch.data.pipeline import to_device
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
 from repro_torch.models.sharding import Mesh
+from repro_torch.spans import count, span
 from repro_torch.train import checkpoint as CKPT
 from repro_torch.train import loop as TL
 
@@ -149,12 +150,26 @@ class ElasticJob:
         """One step on the global batch; {} on a process outside the job's
         devices."""
         metrics = {}
-        if self.member:
-            if self.mesh is None:
-                batch = to_device(batch, self.device)
-            self.state, metrics = self._step_fn(self.state, batch)
-        self.step_idx += 1
-        return {k: float(v) for k, v in metrics.items()}
+        with span("train.step"):
+            retries = self._alloc_retries()
+            if self.member:
+                if self.mesh is None:
+                    batch = to_device(batch, self.device)
+                self.state, metrics = self._step_fn(self.state, batch)
+            self.step_idx += 1
+            out = {k: float(v) for k, v in metrics.items()}
+            if retries is not None:
+                count("train.alloc_retries", self._alloc_retries() - retries)
+        return out
+
+    def _alloc_retries(self):
+        """The caching allocator's retries so far on the job's card while a
+        profiler records (`spans`); None otherwise."""
+        dev = self.device
+        if (dev is None or dev.type != "cuda"
+                or not torch.autograd._profiler_enabled()):
+            return None
+        return torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
 
     def checkpoint(self) -> dict:
         """Write the state (on a mesh, gathered once and written by one

@@ -39,6 +39,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
 from repro_torch.models.params import DTYPES, flatten, tree_map, unflatten
 from repro_torch.models.sharding import Mesh, NamedSharding, logical_to_pspec
+from repro_torch.spans import span
 
 
 @dataclass
@@ -118,13 +119,14 @@ class ServeEngine:
         if self.mesh is not None:
             on_mesh["mesh"] = self.mesh.for_batch((B, S))
         self._sync()
-        t0 = time.perf_counter()
-        logits, cache = self.model.prefill(params, batch,
-                                           pad_to=S + max_new_tokens,
-                                           **on_mesh)
-        logits = self._whole(logits, B)
-        self._sync()
-        self.stats["prefill_s"] += time.perf_counter() - t0
+        with span("serve.prefill"):
+            t0 = time.perf_counter()
+            logits, cache = self.model.prefill(params, batch,
+                                               pad_to=S + max_new_tokens,
+                                               **on_mesh)
+            logits = self._whole(logits, B)
+            self._sync()
+            self.stats["prefill_s"] += time.perf_counter() - t0
         self.stats["prefill_tokens"] += B * S
 
         if generator is None and not greedy:
@@ -139,17 +141,18 @@ class ServeEngine:
                 if done.all():
                     out = out[:, :i + 1]
                     break
-            t0 = time.perf_counter()
-            logits, cache = self.model.decode(params, cache, self._rows(tok, B),
-                                              **on_mesh)
-            logits = self._whole(logits, B)
-            if greedy:
-                tok = torch.argmax(logits, -1)
-            else:
-                probs = torch.softmax(logits.float(), -1)
-                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
-            self._sync()
-            dt = time.perf_counter() - t0
+            with span("serve.decode"):
+                t0 = time.perf_counter()
+                logits, cache = self.model.decode(
+                    params, cache, self._rows(tok, B), **on_mesh)
+                logits = self._whole(logits, B)
+                if greedy:
+                    tok = torch.argmax(logits, -1)
+                else:
+                    probs = torch.softmax(logits.float(), -1)
+                    tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+                self._sync()
+                dt = time.perf_counter() - t0
             self.stats["decode_s"] += dt
             self.stats["decode_tokens"] += B
             if duty < 1.0:            # vertical scaling: decode-rate cap

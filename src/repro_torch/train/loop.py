@@ -44,6 +44,7 @@ from repro_torch.models.params import (DTYPES, ParamSpec, flatten,
                                       param_pspecs, param_shardings,
                                       shard_tree, tree_map)
 from repro_torch.models.sharding import all_reduce
+from repro_torch.spans import span
 from repro_torch.train import compression as COMP
 from repro_torch.train import optimizer as OPT
 
@@ -114,8 +115,10 @@ def _backward(model: Model, remat: str, leaves: dict, batch: dict,
     grad), its gradients added into the leaves' ``.grad``. On a mesh the
     loss is summed over the processes that hold distinct batch rows."""
     with torch.enable_grad():
-        loss, metrics = model.loss(leaves, batch, remat=remat, mesh=mesh)
-        loss.backward()
+        with span("train.forward"):
+            loss, metrics = model.loss(leaves, batch, remat=remat, mesh=mesh)
+        with span("train.backward"):
+            loss.backward()
     loss = loss.detach()
     for a in mesh.batch if mesh is not None else ():
         loss = all_reduce(loss, mesh, a)
@@ -159,7 +162,9 @@ def make_train_step(model: Model, cfg: TrainConfig, mesh=None) -> Callable:
         mesh = mesh.for_batch((micro, cfg.seq_len))
         shardings = model.shardings(mesh)
 
-    def compute_grads(params, batch):
+    def sum_grads(params, batch):
+        """((loss summed over the microbatches, the last one's metrics),
+        gradients summed over the microbatches)."""
         if n_micro == 1 and mesh is None:
             return _value_and_grad(model, cfg.remat, params, batch)
         leaves = _grad_leaves(params)
@@ -170,27 +175,28 @@ def make_train_step(model: Model, cfg: TrainConfig, mesh=None) -> Callable:
                 mb = shard_batch(mb, mesh)
             loss, metrics = _backward(model, cfg.remat, leaves, mb, mesh)
             lsum = loss if lsum is None else lsum + loss
-        if n_micro == 1:
-            return (lsum, metrics), _grads(leaves)
-        divisor = torch.tensor(float(n_micro), device=lsum.device)
-        grads = tree_map(lambda t: t.float().div_(divisor), _grads(leaves))
-        return (lsum / divisor, metrics), grads
+        return (lsum, metrics), _grads(leaves)
 
     def train_step(state: dict, batch: dict):
-        (loss, metrics), grads = compute_grads(state["params"], batch)
-        new_state = dict(state)
-        on_mesh = {} if shardings is None else {"shardings": shardings}
-        if opt_cfg.compression == "int8":
-            grads, new_state["ef"] = COMP.compress_int8(grads, state["ef"],
-                                                        **on_mesh)
-        elif opt_cfg.compression == "topk":
-            grads, new_state["ef"] = COMP.compress_topk(
-                grads, state["ef"], opt_cfg.topk_ratio, **on_mesh)
-        new_p, new_opt, opt_metrics = update(
-            opt_cfg, grads, state["opt"], state["params"], state["step"],
-            **on_mesh)
-        new_state.update({"params": new_p, "opt": new_opt,
-                          "step": state["step"] + 1})
+        (loss, metrics), grads = sum_grads(state["params"], batch)
+        with span("train.optimizer"):
+            if n_micro > 1:
+                divisor = torch.tensor(float(n_micro), device=loss.device)
+                grads = tree_map(lambda t: t.float().div_(divisor), grads)
+                loss = loss / divisor
+            new_state = dict(state)
+            on_mesh = {} if shardings is None else {"shardings": shardings}
+            if opt_cfg.compression == "int8":
+                grads, new_state["ef"] = COMP.compress_int8(
+                    grads, state["ef"], **on_mesh)
+            elif opt_cfg.compression == "topk":
+                grads, new_state["ef"] = COMP.compress_topk(
+                    grads, state["ef"], opt_cfg.topk_ratio, **on_mesh)
+            new_p, new_opt, opt_metrics = update(
+                opt_cfg, grads, state["opt"], state["params"], state["step"],
+                **on_mesh)
+            new_state.update({"params": new_p, "opt": new_opt,
+                              "step": state["step"] + 1})
         return new_state, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
