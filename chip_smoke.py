@@ -1442,9 +1442,15 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 256, 8
 FLASH_TRAIN_F32 = [(2, 128, 4, 2, 32, True, 0), (1, 64, 2, 1, 16, True, 24),
                    (2, 128, 4, 4, 64, False, 0), (1, 96, 8, 2, 32, True, 0)]
 FLASH_TRAIN_MAIN = (TRAIN_MICRO, TRAIN_SEQ, 9, 3, 64, True, 0)
+# SmolLM-135M's 512-token training microbatch (portbench's train-512 cell)
+FLASH_TRAIN_512 = (64, 512, 9, 3, 64, True, 0)
 LSE_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 UPDATE_OFF_SHARE = 1e-4     # train card vs CPU: updates allowed off the bar
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the bf16 backward kernel against the plain f32 backward on the same
+# inputs, of each gradient's max |g|: both round their outputs to bf16,
+# the kernel P and dS too before their products
+BWD_PLAIN_TOL = 1.5e-2
 # the carbon-aware trainer's scenario (tests/test_torch_trainer.py
 # "duty_suspend"): hourly g/kWh, target g/h, simulated s a step, steps
 TRAINER_TRACE = [400.0, 800.0, 2000.0, 100.0] * 12
@@ -1460,6 +1466,32 @@ def _train_qkvd(case, dtype, dev, seed):
                  for h in (Hq, Hkv, Hkv, Hq))
 
 
+def _hold_backward_kernel(q, k, v, out, lse, dout, causal, window) -> dict:
+    """The backward kernel's (dq, dk, dv) against the plain backward's on
+    the same bf16 inputs, within BWD_PLAIN_TOL of each one's max |g|,
+    and a second call bit-equal to the first."""
+    from repro_torch.kernels.flash_attention import flash_attention_backward
+    from repro_torch.kernels.ref import flash_bwd_torch
+    before = flash_attention_backward.launches
+    got = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                   window=window)
+    again = flash_attention_backward(q, k, v, out, lse, dout, causal=causal,
+                                     window=window)
+    plain = flash_bwd_torch(q, k, v, out, lse, dout, causal, window,
+                            q.shape[3] ** -0.5)
+    torch.cuda.synchronize()
+    rel = [float((g.float() - p.float()).abs().max() / p.float().abs().max())
+           for g, p in zip(got, plain)]
+    same = all(torch.equal(a, g) for a, g in zip(again, got))
+    if flash_attention_backward.launches != before + 2 or not same or max(
+            rel) > BWD_PLAIN_TOL:
+        raise AssertionError(f"backward kernel at {tuple(q.shape)}: dq, dk, "
+                             f"dv err / max|g| against the plain version "
+                             f"{rel}, a second call bit-equal {same}")
+    return {"err_over_max_vs_plain": rel, "tol": BWD_PLAIN_TOL,
+            "second_call_bit_equal": same}
+
+
 def flash_train_phase(dev):
     """Flash attention under autograd (`FlashAttentionFn`): for
     tests/test_kernels.py's float32 cases and SmolLM-135M's training
@@ -1468,13 +1500,19 @@ def flash_train_phase(dev):
     out against the plain version at the flash bars, dq / dk / dv
     against autograd through `attention_ref` (1e-4 / 2e-2 of max |g|);
     then at the training shape the times of the forward with lse, of
-    the backward (plain torch in float32, the reference's
-    `_flash_bwd_inner`), and of SDPA forward + backward."""
+    the backward (the bf16 kernel of `flash_attention_backward`, and the
+    plain version: torch in float32, the reference's `_flash_bwd_inner`),
+    and of SDPA forward + backward; and the two backwards' times at the
+    512-token microbatch too. At both microbatches the kernel's dq, dk,
+    dv are held to the plain backward's on the same inputs within
+    BWD_PLAIN_TOL of each one's max |g| (test_torch_cuda.py's bar), and
+    a second call gives the same bits (dq's fixed-order sum)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import cost
-    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
-                                                     flash_attention, route)
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, backward_route, flash_attention,
+        flash_attention_backward, route)
     from repro_torch.kernels.ref import (attention_ref, flash_bwd_torch,
                                          flash_fwd_torch)
     from repro_torch.launch.dryrun_lib import HW
@@ -1512,6 +1550,7 @@ def flash_train_phase(dev):
                                  f" dq, dk, dv err / max|g| {rel}")
         checked.append({"case": list(case), "dtype": str(dtype)[6:],
                         "route": route(dtype, Dh) + "+lse",
+                        "backward_route": backward_route(dtype, Dh),
                         "lse_max_abs_err": lse_err,
                         "lse_tol": LSE_TOL[dtype], "out_max_abs_err": out_err,
                         "out_tol": tol, "grad_err_over_max": rel,
@@ -1532,6 +1571,14 @@ def flash_train_phase(dev):
     bwd_ms = _median_ms(lambda: flash_bwd_torch(
         q, k, v, out, lse, dout, causal, window, scale), reps=10,
         head_start_cycles=20_000_000)
+    held_4k = _hold_backward_kernel(q, k, v, out, lse, dout, causal, window)
+    before = flash_attention_backward.launches
+    bwd_kernel_ms = _median_ms(lambda: flash_attention_backward(
+        q, k, v, out, lse, dout, causal=causal, window=window, scale=scale),
+        head_start_cycles=2_000_000)
+    if flash_attention_backward.launches == before:
+        raise AssertionError("the backward kernel was not launched at the "
+                             "training shape")
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
     def ours():
@@ -1554,6 +1601,29 @@ def flash_train_phase(dev):
                                                 causal, window, lse=True)
     bwd_flops, bwd_bytes = cost.attention_backward(B, S, S, Hq, Hkv, Dh, 2,
                                                    causal, window)
+    del q, k, v, dout, out, lse, leaves, tl, dout_t
+    _free_device_memory()
+    # the two backwards at the 512-token microbatch
+    B5, S5, Hq5, Hkv5, Dh5, causal5, window5 = FLASH_TRAIN_512
+    q, k, v, dout = _train_qkvd(FLASH_TRAIN_512, torch.bfloat16, dev, 8)
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, causal=causal5, return_lse=True)
+    bwd_512 = {
+        "held": _hold_backward_kernel(q, k, v, out, lse, dout, causal5,
+                                      window5),
+        "kernel_ms": _median_ms(lambda: flash_attention_backward(
+            q, k, v, out, lse, dout, causal=causal5, window=window5),
+            head_start_cycles=2_000_000),
+        "plain_ms": _median_ms(lambda: flash_bwd_torch(
+            q, k, v, out, lse, dout, causal5, window5, Dh5 ** -0.5),
+            reps=10, head_start_cycles=2_000_000)}
+    f5, b5 = cost.attention_backward(B5, S5, S5, Hq5, Hkv5, Dh5, 2, causal5,
+                                     window5)
+    bwd_512["bound_ms"] = max(
+        b5 / HW["hbm_bw"], cost.ATTENTION_BACKWARD_BOUND_SHARE * f5
+        / HW["peak_flops_bf16"]) * 1e3
+    del q, k, v, dout, out, lse
+    _free_device_memory()
     return {"checked": checked, "shape": {
         "B": B, "S": S, "Hq": Hq, "Hkv": Hkv, "Dh": Dh, "dtype": "bfloat16",
         "causal": causal, "window": window},
@@ -1561,10 +1631,14 @@ def flash_train_phase(dev):
         "fwd_lse_ms": fwd_lse_ms, "fwd_ms": fwd_ms,
         "fwd_lse_bound_ms": max(fwd_bytes / HW["hbm_bw"],
                                 fwd_flops / HW["peak_flops_bf16"]) * 1e3,
-        "bwd_ms": bwd_ms, "bwd_flops": bwd_flops,
+        "bwd_kernel_ms": bwd_kernel_ms, "bwd_ms": bwd_ms,
+        "bwd_held": held_4k, "bwd_flops": bwd_flops,
         "bwd_bound_ms": max(bwd_bytes / HW["hbm_bw"],
-                            bwd_flops / HW["peak_flops_fp32"]) * 1e3,
-        "bwd_bound_by": "float32 operations (67 TFLOP/s, no TF32)",
+                            cost.ATTENTION_BACKWARD_BOUND_SHARE * bwd_flops
+                            / HW["peak_flops_bf16"]) * 1e3,
+        "bwd_bound_by": "bf16 operations of the dv, dp, dq and dk products "
+                        "(989 TFLOP/s; the recomputed scores not counted)",
+        "bwd_512": bwd_512,
         "fwd_bwd_ms": fwd_bwd_ms, "sdpa_fwd_ms": sdpa_fwd_ms,
         "sdpa_fwd_bwd_ms": sdpa_fwd_bwd_ms,
         "library": "torch.nn.functional.scaled_dot_product_attention("
@@ -1578,8 +1652,10 @@ def carbon_trainer(dev):
     this card): at least one interval with a duty below 1, one
     migration and one suspend/resume; every restore bit-equal to the
     state it saved; every step's loss equal to an uninterrupted job's
-    on the same batches (expected bit-equal; the bar 1e-6 relative);
-    average C(t) <= 1.1 x target (the reference test's bar)."""
+    on the same batches (expected bit-equal, as every kernel of the step
+    is deterministic, the attention backward's dq sum included; the bar
+    1e-6 relative); average C(t) <= 1.1 x target (the reference test's
+    bar); every attention's backward on the backward kernel."""
     import tempfile
 
     from repro_torch.carbon.intensity import TraceProvider
@@ -1676,7 +1752,8 @@ def carbon_trainer(dev):
     if avg > 1.1 * TRAINER_TARGET:
         problems.append(f"average C(t) {avg} > 1.1 x {TRAINER_TARGET}")
     if launches["flash_attention"] != TRAINER_STEPS * per_step or routes[
-            "flash_attention"]["wgmma+lse"] != TRAINER_STEPS * per_step:
+            "flash_attention"]["wgmma+lse"] != TRAINER_STEPS * per_step or (
+            launches["flash_attention_bwd"] != TRAINER_STEPS * per_step):
         problems.append(f"launches {launches}, routes {routes}")
     if problems:
         raise AssertionError(f"carbon-aware trainer: {problems}")
@@ -1909,8 +1986,9 @@ def _expected_train_launches(cfg, n_micro, remat):
     """{kernel: {route: launches}} of one train step of `n_micro`
     microbatches: per microbatch each SSD call once, each RG-LRU scan
     twice (the forward and the backward's reverse scan), each attention
-    once on the flash kernel with lse; under a remat policy each
-    forward once more (the backward recomputes the layer)."""
+    once on the flash kernel with lse and, in bf16 at Dh 64 / 128, once
+    on the backward kernel (which has no routes); under a remat policy
+    each forward once more (the backward recomputes the layer)."""
     bf16 = cfg.dtype == "bfloat16"
     again = 0 if remat == "none" else 1
     if cfg.family == "ssm":
@@ -1921,6 +1999,8 @@ def _expected_train_launches(cfg, n_micro, remat):
               "encdec": cfg.n_enc_layers + 2 * cfg.n_layers}.get(
                   cfg.family, cfg.n_layers)
     out = {"flash_attention": {flash: n_micro * n_attn * (1 + again)}}
+    if bf16 and cfg.head_dim in (64, 128):
+        out["flash_attention_bwd"] = {"wgmma": n_micro * n_attn}
     if cfg.family == "hybrid":
         out["rglru_scan"] = {"ring": n_micro * (cfg.n_layers - n_attn)
                              * (2 + again)}
@@ -1934,7 +2014,8 @@ def _check_launches(what, cfg, n_micro, remat):
     for name, n in launches.items():
         exp = sum(want.get(name, {}).values())
         got_routes = {r: c for r, c in routes.get(name, {}).items() if c}
-        if n != exp or (exp and got_routes != want[name]):
+        if n != exp or (exp and name in routes
+                        and got_routes != want[name]):
             raise AssertionError(f"{what}: {name} launched {n} times on "
                                  f"{got_routes}, expected {want.get(name)}")
     return launches, routes
@@ -3175,12 +3256,14 @@ def _kernel_counters():
     """{library name: the wrapper whose `launches` counts that kernel's
     launches}."""
     from repro_torch.cluster.placement_kernel import admission_rounds
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_backward)
     from repro_torch.kernels.rglru_scan import rglru_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     return {"admission_round": admission_rounds,
-            "flash_attention": flash_attention, "ssd_scan": ssd_scan,
-            "rglru_scan": rglru_scan}
+            "flash_attention": flash_attention,
+            "flash_attention_bwd": flash_attention_backward,
+            "ssd_scan": ssd_scan, "rglru_scan": rglru_scan}
 
 
 def _zero_counts():
@@ -3229,6 +3312,8 @@ def sass_counts(libs) -> dict:
                     funcs[fn][op.group(1)] += 1
         out[name] = funcs
     want = {("flash_attention", "flash_fwd_wgmma", ("HGMMA",)),
+            ("flash_attention_bwd", "flash_bwd_wgmma", ("HGMMA",)),
+            ("flash_attention_bwd", "flash_bwd_wgmma", ("UTMALDG",)),
             ("ssd_scan", "ssd_states_mma", ("HMMA",)),
             ("ssd_scan", "ssd_out_mma", ("HMMA",)),
             ("rglru_scan", "rglru_ring", ("UTMALDG", "UBLKCP"))}
@@ -3565,6 +3650,12 @@ def main():
                   for arch, switch, kernel in BF16_CHECK]
     _free_device_memory()
     flash_train = timed("flash_train", flash_train_phase, dev)
+    kernels["flash_attention_bwd"] = {
+        "name": "flash_attention_bwd", "sass": sass["flash_attention_bwd"],
+        "route": "wgmma (bf16 at Dh 64 and 128)",
+        **{k: flash_train[k] for k in ("shape", "bwd_kernel_ms", "bwd_ms",
+                                       "bwd_bound_ms", "bwd_held",
+                                       "bwd_512")}}
     _free_device_memory()
     scan_bwd = timed("scan_backward", scan_backward_phase, dev)
     _free_device_memory()

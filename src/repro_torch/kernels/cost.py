@@ -15,14 +15,17 @@ by the card's peaks (`repro_torch.launch.dryrun_lib.HW`), and the ones
   - `ssd_scan`: the Mamba-2 chunked SSD scan (G = 1, zero h0);
   - `rglru_scan` and `rglru_scan_backward`: the RG-LRU recurrence and
     its time-reversed backward;
-  - `attention_backward` and `ssd_backward`: the two plain-torch
-    backwards that training runs after those kernels.
+  - `attention_backward` and `ssd_backward`: the two backwards that
+    training runs after those kernels (attention's on the bf16 backward
+    kernel or its plain float32 version, the SSD's in plain torch).
 
 `COUNTER` adds the cost of every call that the card serves with a hand
 kernel: `ops.mha`, `ops.ssd` and `ops.rglru` (and the RG-LRU backward)
 and `admission_rounds` count it on every route, the kernel on the card
 and the plain version on the CPU, so a roofline reads the same work
-whatever implements it. It counts only inside ``with COUNTER.on():``
+whatever implements it. The attention backward's kernel
+(`flash_attention_backward`) counts as ``flash_attention_bwd``; its
+plain version is aten ops, which a probe counts as such. It counts only inside ``with COUNTER.on():``
 (which `repro_torch.launch.dryrun_lib.count_cost` enters); elsewhere a
 call pays for one attribute read and computes no cost. The kernels
 launch outside aten, where no ``TorchDispatchMode`` sees them; while a
@@ -39,7 +42,13 @@ from typing import Callable, Optional
 
 import numpy as np
 
-KERNELS = ("admission_round", "flash_attention", "ssd_scan", "rglru_scan")
+KERNELS = ("admission_round", "flash_attention", "flash_attention_bwd",
+           "ssd_scan", "rglru_scan")
+
+# of `attention_backward`'s 10 FLOPs a kept pair per Dh, the 8 of the dV,
+# dP, dQ and dK products: a backward's bound counts these and leaves out
+# the recomputed scores (2), which a backward that kept P would not need
+ATTENTION_BACKWARD_BOUND_SHARE = 8 / 10
 
 
 def admission_rounds(N: int, R: int, rounds: int) -> tuple:
@@ -79,9 +88,10 @@ def flash_attention(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, Dh: int,
 
 def attention_backward(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, Dh: int,
                        itemsize: int, causal: bool, window: int) -> tuple:
-    """The recomputing backward (`ref.flash_bwd_torch`): the s, dv, dp,
-    dq and dk products over the kept pairs; bytes: q, k, v, out, dout
-    and lse."""
+    """One recomputing backward of `FlashAttentionFn`, whichever
+    computes it (the bf16 kernel of `flash_attention_backward` or its
+    plain version `ref.flash_bwd_torch`): the s, dv, dp, dq and dk
+    products over the kept pairs; bytes: q, k, v, out, dout and lse."""
     flops = 10 * B * Hq * Dh * attention_pairs(Sq, Skv, causal, window)
     nbytes = (_attention_io(B, Sq, Skv, Hq, Hkv, Dh, itemsize)
               + itemsize * B * Sq * Hq * Dh + 4 * B * Hq * Sq)

@@ -14,18 +14,24 @@ log-sum-exp (float32, (B, Hq, Sq)). On a CPU tensor it runs
 log-sum-exp, the blocked `ref.flash_fwd_torch`); the plain version is
 also what the kernel is held against on the card.
 
-The kernel has no backward: on the card it raises when autograd would
-need one (grad enabled and an input requiring grad), rather than return
-an output cut from the graph. Training goes through `FlashAttentionFn`:
-its forward is this wrapper with the log-sum-exp (the kernel on the
-card), its backward the reference's recomputing backward
-(`ref._flash_bwd_inner` at the reference's blocks, plain torch in
-float32, as the reference computes it outside any Pallas kernel).
+The forward kernel has no autograd node of its own: on the card it
+raises when autograd would need one (grad enabled and an input requiring
+grad), rather than return an output cut from the graph. Training goes
+through `FlashAttentionFn`: its forward is this wrapper with the
+log-sum-exp (the kernel on the card), its backward
+`flash_attention_backward`. That takes the hand-written sm_90a backward
+in ``csrc/flash_attention_bwd.cu`` (dq, dk, dv on wgmma from the lse,
+three launches, the same bits from run to run) for a CUDA tensor whose
+(dtype, Dh) is in `BACKWARD_KERNEL`, and otherwise the reference's recomputing
+backward (`ref.flash_bwd_torch`: `_flash_bwd_inner` at the reference's
+blocks, plain torch in float32, as the reference computes it outside any
+Pallas kernel), which is also what the kernel is held against.
 
 `flash_attention.launches` counts kernel launches and
 `flash_attention.route_launches` the launches per route, with a
-``"+lse"`` suffix for launches that write the log-sum-exp; CPU calls do
-not count.
+``"+lse"`` suffix for launches that write the log-sum-exp;
+`flash_attention_backward.launches` counts the backward kernel's calls.
+CPU calls do not count.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ from typing import Optional
 import torch
 
 from repro_torch import cuda_build
+from repro_torch.kernels import cost
 from repro_torch.kernels.ref import (attention_ref, flash_bwd_torch,
                                      flash_fwd_torch, needs_grad)
 
@@ -48,6 +55,14 @@ ROUTES = {
 }
 
 
+# the (dtype, Dh) pairs whose backward the card's kernel serves: bf16 at Dh
+# 64 and 128. Every other pair takes the plain float32 backward: float32
+# (which keeps the 1e-4 bars), bf16 at Dh 16 and 32 (too narrow for wgmma's
+# 64-column boxes) and bf16 at Dh 256 (dK and dV would take 256 f32
+# registers a thread)
+BACKWARD_KERNEL = {(torch.bfloat16, 64), (torch.bfloat16, 128)}
+
+
 def route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel that serves (dtype, Dh) on the card; raises if none."""
     try:
@@ -57,6 +72,13 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
                          f"{head_dim}; the table serves "
                          f"{sorted((str(d)[6:], h) for d, h in ROUTES)}"
                          ) from None
+
+
+def backward_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The backward of (dtype, Dh) on the card: ``"wgmma"`` (the kernel)
+    for a pair of `BACKWARD_KERNEL`, else ``"plain"``
+    (`ref.flash_bwd_torch`)."""
+    return "wgmma" if (dtype, head_dim) in BACKWARD_KERNEL else "plain"
 
 
 def flash_attention_torch(q, k, v, *, causal: bool = True, window: int = 0,
@@ -102,6 +124,17 @@ def _library():
     lib.flash_attention_fwd_wgmma.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                               i, i, i, ctypes.c_float, p]
     lib.flash_attention_fwd_wgmma.restype = i
+    return lib
+
+
+@functools.cache
+def _backward_library():
+    """The built backward kernel with its C signature declared."""
+    lib = cuda_build.load("flash_attention_bwd")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.flash_attention_bwd_wgmma.argtypes = [p] * 13 + [i] * 8 + [
+        ctypes.c_float, p]
+    lib.flash_attention_bwd_wgmma.restype = i
     return lib
 
 
@@ -167,14 +200,78 @@ flash_attention.route_launches = dict.fromkeys(
 Q_BLOCK, KV_BLOCK = 512, 1024
 
 
+def flash_attention_backward(q, k, v, out, lse, dout, *, causal: bool = True,
+                             window: int = 0, scale: Optional[float] = None):
+    """(dq, dk, dv) of `flash_attention` from the saved (q, k, v, out,
+    lse (B,Hq,Sq) float32) and dout, in the dtypes of q, k, v.
+
+    On a CUDA tensor whose (dtype, Dh) is in `BACKWARD_KERNEL`: the kernel
+    of ``csrc/flash_attention_bwd.cu`` (a pre-pass for delta =
+    rowsum(dout·out), the products, dq rounded from its f32 accumulator:
+    three launches; see the source). Its dq sums the key blocks in a fixed
+    order, so the same inputs give the same bits. Inside
+    `cost.COUNTER.on()` a kernel call counts as ``flash_attention_bwd``.
+    Otherwise, and for every CPU tensor, the plain version
+    `ref.flash_bwd_torch` in float32 at the reference's blocks (its aten
+    ops are what a cost probe sees). q and kv positions both start at 0.
+    """
+    scale = scale if scale is not None else q.shape[3] ** -0.5
+    B, Sq, Hq, Dh = q.shape
+    if q.device.type != "cuda" or backward_route(q.dtype, Dh) == "plain":
+        return flash_bwd_torch(q, k, v, out, lse, dout, causal, window,
+                               scale, Q_BLOCK, KV_BLOCK)
+    _check(q, k, v)
+    dout = dout.contiguous()
+    if (out.shape != q.shape or dout.shape != q.shape
+            or out.dtype != q.dtype or dout.dtype != q.dtype
+            or not out.is_contiguous()):
+        raise ValueError("the backward kernel takes out and dout contiguous, "
+                         "of q's shape and dtype")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (B, Hq, Sq)
+            or not lse.is_contiguous()):
+        raise ValueError("the backward kernel takes lse (B, Hq, Sq) float32, "
+                         "contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, dout)):
+        raise ValueError("the backward kernel's TMA loads need q, k, v, out "
+                         "and dout 16-byte aligned")
+    Skv, Hkv = k.shape[1], k.shape[2]
+    sq_pad = -(-Sq // 64) * 64
+    f32 = dict(dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dq_acc = torch.empty(B, Hq, sq_pad, Dh, **f32)
+    lse_pad = torch.empty(B, Hq, sq_pad, **f32)
+    delta = torch.empty(B, Hq, sq_pad, **f32)
+    order = torch.empty(B, Hq, sq_pad // 64, dtype=torch.int32,
+                        device=q.device)
+    lib = _backward_library()
+    with torch.cuda.device(q.device), cost.COUNTER.count(
+            "flash_attention_bwd", lambda: cost.attention_backward(
+                B, Sq, Skv, Hq, Hkv, Dh, q.element_size(), causal, window)):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_bwd_wgmma(
+            *(t.data_ptr() for t in (q, k, v, out, lse, dout, dq, dk, dv,
+                                     dq_acc, lse_pad, delta, order)),
+            B, Sq, Skv, Hq, Hkv, Dh, int(bool(causal)), int(window or 0),
+            float(scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attention_backward launch failed: error "
+                           f"{err}")
+    flash_attention_backward.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_backward.launches = 0
+
+
 class FlashAttentionFn(torch.autograd.Function):
     """Flash attention under autograd: the forward is `flash_attention`
     writing (out, lse) (the kernel on the card, its plain version on the
-    CPU); the backward is the reference's `_flash_bwd_inner` in float32
-    on (q, k, v, out, lse, dout) at the reference's blocks
-    (`ref.flash_bwd_torch`). q and kv positions both start at 0: a
-    self-attention, or a non-causal cross-attention (Sq != Skv; the
-    backward masks the keys it pads).
+    CPU); the backward is `flash_attention_backward` on (q, k, v, out,
+    lse, dout): the backward kernel for bf16 at Dh 64 and 128 on the
+    card, else the reference's `_flash_bwd_inner` in float32 at the
+    reference's blocks (`ref.flash_bwd_torch`). q and kv positions both
+    start at 0: a self-attention, or a non-causal cross-attention (Sq !=
+    Skv; both backwards mask the keys they pad).
 
         out = FlashAttentionFn.apply(q, k, v, causal, window, scale)
     """
@@ -191,6 +288,8 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd_torch(q, k, v, out, lse, dout, *ctx.args,
-                                     Q_BLOCK, KV_BLOCK)
+        causal, window, scale = ctx.args
+        dq, dk, dv = flash_attention_backward(q, k, v, out, lse, dout,
+                                              causal=causal, window=window,
+                                              scale=scale)
         return dq, dk, dv, None, None, None

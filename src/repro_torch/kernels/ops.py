@@ -11,7 +11,8 @@ the TPU's place. ``impl``:
     == 0``, no ``kv_len`` or ``kv_positions``, more than one row), and
     under grad (grad enabled, an input requiring it) `FlashAttentionFn`,
     whose forward is the same kernel writing the row log-sum-exp and
-    whose backward is the reference's recomputing one. Otherwise the
+    whose backward recomputes from it (the bf16 backward kernel at Dh 64
+    and 128, else the reference's plain one). Otherwise the
     reference's CPU rule: `attention_ref` for one row, ring-buffer
     positions or Sq·Skv <= 1024²; above that `attention_flash` (self-
     attention) or `attention_chunked`.

@@ -1,8 +1,9 @@
 """The port's attention against the JAX reference on the CPU: the flash
 kernel's wrapper (on CPU tensors, its plain version) against the Pallas
 kernel in interpret mode, and `attention_ref` against the reference's in
-the decode case. Inputs are made with numpy from a seed and handed to
-both sides."""
+the decode case; the backward's kernel pairs, and its CPU route (the
+plain `flash_bwd_torch`, no kernel launch or kernel cost counted). Inputs are made with numpy
+from a seed and handed to both sides."""
 import numpy as np
 import pytest
 import torch
@@ -14,10 +15,12 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
 
-from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.kernels.flash_attention import (flash_attention,  # noqa: E402
-                                                 flash_attention_torch)
-from repro_torch.kernels.ref import NEG_INF, attention_ref  # noqa: E402
+from repro_torch.kernels import cost, ops  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    BACKWARD_KERNEL, FlashAttentionFn, backward_route, flash_attention,
+    flash_attention_backward, flash_attention_torch)
+from repro_torch.kernels.ref import (NEG_INF, attention_ref,  # noqa: E402
+                                     flash_bwd_torch, flash_fwd_torch)
 
 # tests/test_kernels.py's ATTN_CASES:
 # B, S, Hq, Hkv, Dh, causal, window, bq, bk
@@ -134,3 +137,61 @@ def test_plain_version_is_attention_ref():
     q, k, v = (torch.tensor(a) for a in _qkv(2, 16, 16, 4, 2, 32))
     assert torch.equal(flash_attention_torch(q, k, v, window=5),
                        attention_ref(q, k, v, window=5))
+
+
+def test_backward_route_table():
+    """The backward kernel serves bf16 at Dh 64 and 128; float32 at every
+    Dh, bf16 at Dh 16, 32 and 256 and any other pair keep the plain
+    float32 backward."""
+    assert BACKWARD_KERNEL == {(torch.bfloat16, 64), (torch.bfloat16, 128)}
+    for dh in (64, 128):
+        assert backward_route(torch.bfloat16, dh) == "wgmma"
+    for dh in (16, 32, 64, 128, 256):
+        assert backward_route(torch.float32, dh) == "plain"
+    for dh in (16, 32, 256):
+        assert backward_route(torch.bfloat16, dh) == "plain"
+    assert backward_route(torch.float16, 64) == "plain"
+    assert backward_route(torch.bfloat16, 96) == "plain"
+
+
+# B, Sq, Skv, Hq, Hkv, Dh, causal, window, dtype: a pair the card sends to
+# the kernel (bf16, Dh 128, with a window) and one it keeps plain
+BWD_CPU_CASES = [(1, 33, 33, 4, 1, 128, True, 9, "bfloat16"),
+                 (1, 12, 30, 2, 2, 64, False, 0, "float32")]
+
+
+@pytest.mark.parametrize("case", BWD_CPU_CASES, ids=str)
+def test_backward_on_the_cpu_is_the_plain_version(case):
+    """A CPU tensor takes `flash_bwd_torch` whatever its route on the
+    card, bit for bit, directly and through `FlashAttentionFn`; the
+    backward kernel's launch counter does not move, and a cost probe
+    counts no call of it."""
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window, dtype = case
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.tensor(a).to(dt)
+               for a in _qkv(B, Sq, Skv, Hq, Hkv, Dh, seed=sum(case[:6])))
+    dout = torch.tensor(np.random.default_rng(1).normal(
+        size=(B, Sq, Hq, Dh)).astype(np.float32)).to(dt)
+    out, lse = flash_fwd_torch(q, k, v, causal, window)
+    before = flash_attention_backward.launches
+    calls = cost.COUNTER.calls["flash_attention_bwd"]
+    with cost.COUNTER.on():
+        got = flash_attention_backward(q, k, v, out, lse, dout,
+                                       causal=causal, window=window)
+    assert cost.COUNTER.calls["flash_attention_bwd"] == calls
+    want = flash_bwd_torch(q, k, v, out, lse, dout, causal, window,
+                           Dh ** -0.5, 512, 1024)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    through_fn = torch.autograd.grad(
+        FlashAttentionFn.apply(*leaves, causal, window, None), leaves, dout)
+    assert flash_attention_backward.launches == before
+    for g, f, w in zip(got, through_fn, want):
+        assert g.dtype == dt and torch.equal(g, w) and torch.equal(f, w)
+
+
+def test_backward_bound_counts_the_four_products():
+    """The backward's bound counts the dV, dP, dQ and dK products: 8 of
+    `cost.attention_backward`'s 10 FLOPs a kept pair per Dh."""
+    flops, _ = cost.attention_backward(2, 40, 40, 6, 2, 64, 2, True, 9)
+    pairs = cost.attention_pairs(40, 40, True, 9)
+    assert cost.ATTENTION_BACKWARD_BOUND_SHARE * flops == 8 * 2 * 6 * 64 * pairs

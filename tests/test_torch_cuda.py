@@ -7,8 +7,9 @@ with traffic and energy folded into the scan), the scenario matrix and a
 custom policy's host decisions card against CPU, card-vs-CPU serving
 (SmolLM, Mamba-2, RecurrentGemma, OLMoE's routing, Whisper), and
 training: the flash kernel's log-sum-exp and gradients through
-`FlashAttentionFn`, the SSD and RG-LRU kernels under autograd
-(`SSDScanFn`, `RGLRUScanFn` with its reverse scan on the ring route),
+`FlashAttentionFn` (the bf16 backward kernel at every mask it serves),
+the SSD and RG-LRU kernels under autograd (`SSDScanFn`, `RGLRUScanFn`
+with its reverse scan on the ring route),
 the raw wrappers' refusal to cut the autograd graph, and a train step
 card against CPU for each family. They skip without a GPU. On the
 card, where JAX (which ``tests/conftest.py`` imports) is not installed:
@@ -580,9 +581,12 @@ def test_flash_fn_lse_and_grads_on_card(cuda, case, dtype):
     tensor cores' products summed in another order and __expf) absolute;
     out within the flash bars (2e-5 / 2e-2); dq, dk, dv against autograd
     through `attention_ref` on the same inputs within 1e-4 / 2e-2 of
-    each one's max |g|."""
-    from repro_torch.kernels.flash_attention import (FlashAttentionFn,
-                                                     flash_attention, route)
+    each one's max |g|. The backward goes through the kernel (one call
+    of `flash_attention_backward`'s kernel) exactly where
+    `BACKWARD_KERNEL` says: bf16 at Dh 64 and 128; never for float32."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, backward_route, flash_attention,
+        flash_attention_backward, route)
     from repro_torch.kernels.ref import attention_ref, flash_fwd_torch
     B, S, Hq, Hkv, Dh, causal, window = case
     dt = getattr(torch, dtype)
@@ -601,10 +605,14 @@ def test_flash_fn_lse_and_grads_on_card(cuda, case, dtype):
     torch.testing.assert_close(out.float(), want_out.float(), atol=tol,
                                rtol=tol)
     before = flash_attention.route_launches[path]
+    bwd_before = flash_attention_backward.launches
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     got_out = FlashAttentionFn.apply(*leaves, causal, window, None)
     got = torch.autograd.grad(got_out, leaves, dout)
     assert flash_attention.route_launches[path] == before + 1
+    kernel = dtype == "bfloat16" and Dh in (64, 128)
+    assert backward_route(dt, Dh) == ("wgmma" if kernel else "plain")
+    assert flash_attention_backward.launches == bwd_before + kernel
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     want = torch.autograd.grad(attention_ref(*ref_leaves, causal=causal,
                                              window=window), ref_leaves, dout)
@@ -613,6 +621,70 @@ def test_flash_fn_lse_and_grads_on_card(cuda, case, dtype):
         assert g.dtype == dt and g.shape == w.shape
         scale = float(w.float().abs().max())
         assert float((g.float() - w.float()).abs().max()) <= gtol * scale
+
+
+# B, Sq, Skv, Hq, Hkv, Dh, causal, window: each mask the backward kernel
+# serves in bf16: Dh 128 with a window; Whisper's cross-attention (non-
+# causal, Sq != Skv, a ragged last tile of 1,500 keys) at a decode prompt
+# and at the decoder's 448 rows; causal with Sq > Skv and Sq < Skv; S =
+# 1,100 (partial q and key tiles); GQA 16:1; SmolLM-135M's microbatches
+# of 8 x 4,096 and of 64 x 512
+FLASH_BWD_CASES = [(1, 700, 700, 4, 1, 128, True, 200),
+                   (8, 4, 1500, 8, 8, 64, False, 0),
+                   (2, 448, 1500, 8, 8, 64, False, 0),
+                   (1, 1000, 200, 3, 1, 64, True, 0),
+                   (2, 200, 1000, 6, 2, 128, True, 0),
+                   (1, 1100, 1100, 9, 3, 64, True, 0),
+                   (1, 1000, 1000, 16, 1, 128, True, 0),
+                   (2, 1000, 1000, 8, 2, 64, False, 300),
+                   (8, 4096, 4096, 9, 3, 64, True, 0),
+                   (64, 512, 512, 9, 3, 64, True, 0)]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+def test_flash_backward_kernel_on_card(cuda, case):
+    """`FlashAttentionFn` in bf16 through the backward kernel (one call a
+    backward): dq, dk, dv within 2e-2 of each one's max |g| of autograd
+    through `attention_ref` on the same inputs (float32), and within
+    1.5e-2 of the plain backward `ref.flash_bwd_torch` on the same
+    (q, k, v, out, lse, dout): both round their outputs to bf16 (2^-9 of
+    |g| each) and the kernel rounds P and dS to bf16 before their
+    products (≈ 2^-9 a term). Two more calls of the kernel on the same
+    inputs give the same bits as the first (dq sums the key blocks in a
+    fixed order)."""
+    from repro_torch.kernels.flash_attention import (
+        FlashAttentionFn, flash_attention, flash_attention_backward)
+    from repro_torch.kernels.ref import attention_ref, flash_bwd_torch
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
+    q, k, v, dout = (torch.randn(B, s, h, Dh, generator=gen, device=cuda)
+                     .to(torch.bfloat16)
+                     for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv), (Sq, Hq)))
+    before = flash_attention_backward.launches
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(FlashAttentionFn.apply(
+        *leaves, causal, window, None), leaves, dout)
+    assert flash_attention_backward.launches == before + 1
+    with torch.no_grad():
+        out, lse = flash_attention(q, k, v, causal=causal, window=window,
+                                   return_lse=True)
+    plain = flash_bwd_torch(q, k, v, out, lse, dout, causal, window,
+                            Dh ** -0.5)
+    for _ in range(2):
+        again = flash_attention_backward(q, k, v, out, lse, dout,
+                                         causal=causal, window=window)
+        assert all(torch.equal(a, g) for a, g in zip(again, got))
+    del out, lse, again
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(
+        *ref_leaves, causal=causal, window=window), ref_leaves, dout.float())
+    for g, w, p in zip(got, want, plain):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert not torch.isnan(g).any()
+        scale = float(w.abs().max())
+        assert float((g.float() - w).abs().max()) <= 2e-2 * scale
+        scale = float(p.float().abs().max())
+        assert float((g.float() - p.float()).abs().max()) <= 1.5e-2 * scale
 
 
 def test_mha_trains_through_the_flash_kernel(cuda):

@@ -6,6 +6,15 @@ run them). Inputs are made with numpy from a seed.
 - flash (wgmma route): scores from bf16 operands in f32, scaled after the
   dot, an online softmax over 64-key tiles in f32, and P rounded to bf16
   per tile for the P.V product; bar 2e-2.
+- flash backward (the bf16 kernel of `flash_attention_backward`): blocks
+  of 128 keys over the q tiles of 64 rows that their masks keep, S^T and
+  dP^T from bf16 operands in f32, P and dS rounded to bf16 before the dV,
+  dK and dQ products, dQ summed in f32 over the blocks (in the kernel's
+  fixed order: ascending key block) and scaled last; bar 2e-2 of each
+  gradient's max |g| against JAX's VJP of the reference's
+  `attention_ref`. The kernel's dQ order rests on its tiling: the key
+  blocks that run over a q tile are a run from the first one its counter
+  waits for, and cover every kept pair.
 - SSD (mma.sync route): B, C and x exact bf16 operands; the f32
   intermediates (x w of the chunk state, the decayed score matrix, the
   entering state) split into bf16 hi + lo, two products each; bars 1e-1
@@ -23,9 +32,10 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import flash_attention as jflash  # noqa: E402
+from repro.kernels.ref import attention_ref as jattention_ref  # noqa: E402
 from repro.kernels.ssd_scan import ssd_pallas  # noqa: E402
 
-from repro_torch.kernels.ref import NEG_INF  # noqa: E402
+from repro_torch.kernels.ref import NEG_INF, flash_fwd_torch  # noqa: E402
 
 BK = 64          # keys per tile of the wgmma kernel
 
@@ -100,6 +110,159 @@ def test_flash_wgmma_numerics_match_pallas_interpret(case, record_property):
     margin = _margin(got.float().numpy(), want, 2e-2, 2e-2)
     record_property("margin", margin)
     assert margin < 1.0, f"error is {margin:.3f} of the 2e-2 bar"
+
+
+BWD_BN, BWD_BM = 128, 64    # keys per block, q rows per tile of the backward
+
+
+def _pad_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """(B, S, ...) -> (B, n, ...), zeros past S."""
+    out = x.new_zeros((x.shape[0], n) + tuple(x.shape[2:]))
+    out[:, :x.shape[1]] = x
+    return out
+
+
+def bwd_q_tiles(k0: int, Sq: int, Skv: int, causal: bool,
+                window: int) -> range:
+    """The q tiles the backward kernel runs its block of keys k0 .. over
+    (`qt_begin`, `qt_end` of the .cu)."""
+    nqt = -(-Sq // BWD_BM)
+    k_last = min(k0 + BWD_BN, Skv) - 1
+    qt_begin = k0 // BWD_BM if causal else 0
+    qt_end = (min(nqt, (k_last + window - 1) // BWD_BM + 1) if window > 0
+              else nqt)
+    return range(qt_begin, qt_end)
+
+
+def bwd_dq_first_key_tile(qt: int, Skv: int, window: int) -> int:
+    """The key block whose dQ the kernel adds into q tile `qt` first (the
+    adding thread's `lo`): the rank of block n there is n - lo."""
+    lo = 0
+    if window > 0:
+        while (min(lo * BWD_BN + BWD_BN, Skv) - 1 + window - 1) // BWD_BM + 1 <= qt:
+            lo += 1
+    return lo
+
+
+def flash_bwd_wgmma_emulation(q, k, v, out, lse, dout, *, causal=True,
+                              window=0):
+    """The backward kernel's arithmetic and tiling on the CPU: q, out,
+    dout (B,Sq,Hq,Dh), k, v (B,Skv,Hkv,Dh) bf16, lse (B,Hq,Sq) f32 ->
+    dq, dk, dv bf16."""
+    B, Sq, Hq, Dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = Dh ** -0.5
+    sq_pad = -(-Sq // BWD_BM) * BWD_BM
+    qf, dof = (_pad_rows(t.float(), sq_pad) for t in (q, dout))
+    delta = _pad_rows((dout.float() * out.float()).sum(-1), sq_pad)
+    lse_p = _pad_rows(lse.transpose(1, 2), sq_pad)          # (B,Sq_pad,Hq)
+    nkt = -(-Skv // BWD_BN)
+    kf, vf = (_pad_rows(t.float(), nkt * BWD_BN) for t in (k, v))
+    dq_acc = torch.zeros(B, sq_pad, Hq, Dh)
+    dk = torch.zeros(B, Skv, Hkv, Dh, dtype=torch.bfloat16)
+    dv = torch.zeros_like(dk)
+    for kt in range(nkt):
+        k0 = kt * BWD_BN
+        keys = torch.arange(k0, k0 + BWD_BN)[:, None]
+        for hkv in range(Hkv):
+            kb, vb = kf[:, k0:k0 + BWD_BN, hkv], vf[:, k0:k0 + BWD_BN, hkv]
+            dk_acc = torch.zeros(B, BWD_BN, Dh)
+            dv_acc = torch.zeros(B, BWD_BN, Dh)
+            for h in range(hkv * G, (hkv + 1) * G):
+                for qt in bwd_q_tiles(k0, Sq, Skv, causal, window):
+                    rows = slice(qt * BWD_BM, (qt + 1) * BWD_BM)
+                    qpos = torch.arange(rows.start, rows.stop)[None, :]
+                    qb, dob = qf[:, rows, h], dof[:, rows, h]
+                    ok = (keys < Skv) & (qpos < Sq)
+                    if causal:
+                        ok = ok & (keys <= qpos)
+                    if window > 0:
+                        ok = ok & (keys > qpos - window)
+                    st = kb @ qb.transpose(1, 2)              # (B,128,64)
+                    dpt = vb @ dob.transpose(1, 2)
+                    p = torch.exp(st * scale + torch.where(ok, 0.0, NEG_INF)
+                                  - lse_p[:, None, rows, h])
+                    ds = p * (dpt - delta[:, None, rows, h])
+                    dv_acc += _bf16_round(p) @ dob
+                    dk_acc += _bf16_round(ds) @ qb
+                    dq_acc[:, rows, h] += _bf16_round(ds).transpose(1, 2) @ kb
+            n = min(BWD_BN, Skv - k0)
+            dk[:, k0:k0 + n, hkv] = (dk_acc[:, :n] * scale).to(torch.bfloat16)
+            dv[:, k0:k0 + n, hkv] = dv_acc[:, :n].to(torch.bfloat16)
+    return (dq_acc[:, :Sq] * scale).to(torch.bfloat16), dk, dv
+
+
+# B, Sq, Skv, Hq, Hkv, Dh, causal, window: the kernel's head widths, GQA,
+# a ragged q and kv tail, a window that ends inside a tile, and a
+# non-causal cross-attention with Sq != Skv (Whisper's)
+FLASH_BWD_CASES = [(2, 200, 200, 6, 2, 64, True, 0),
+                   (1, 300, 300, 4, 1, 128, True, 70),
+                   (1, 40, 130, 4, 2, 64, False, 0),
+                   (2, 160, 160, 3, 3, 128, False, 40)]
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES, ids=str)
+def test_flash_bwd_wgmma_numerics_match_the_reference_vjp(case,
+                                                          record_property):
+    B, Sq, Skv, Hq, Hkv, Dh, causal, window = case
+    rng = np.random.default_rng(sum(case[:6]))
+    arrs = [rng.normal(size=(B, s, h, Dh)).astype(np.float32)
+            for s, h in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv), (Sq, Hq))]
+    q, k, v, dout = (torch.tensor(a).to(torch.bfloat16) for a in arrs)
+    out, lse = flash_fwd_torch(q, k, v, causal, window)
+    got = flash_bwd_wgmma_emulation(q, k, v, out, lse, dout, causal=causal,
+                                    window=window)
+    _, vjp = jax.vjp(lambda *t: jattention_ref(*t, causal=causal,
+                                               window=window),
+                     *(jnp.asarray(t.float().numpy()) for t in (q, k, v)))
+    want = vjp(jnp.asarray(dout.float().numpy()))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        w = np.asarray(w, np.float32)
+        margin = float(np.abs(g.float().numpy() - w).max()
+                       / (2e-2 * np.abs(w).max()))
+        record_property(f"{name}_margin", margin)
+        assert margin < 1.0, f"{name} error is {margin:.3f} of the 2e-2 bar"
+
+
+# Sq, Skv, causal, window: the card tests' masks, SmolLM-135M's two
+# microbatch lengths, RecurrentGemma's 2,048-key window at 4,096, windows
+# that end inside a tile, and a window wider than the keys
+DQ_ORDER_CASES = [(700, 700, True, 200), (4, 1500, False, 0),
+                  (448, 1500, False, 0), (1000, 200, True, 0),
+                  (200, 1000, True, 0), (1100, 1100, True, 0),
+                  (1000, 1000, False, 300), (4096, 4096, True, 0),
+                  (512, 512, True, 0), (300, 300, True, 70),
+                  (4096, 4096, True, 2048), (160, 160, False, 40),
+                  (130, 130, True, 5000)]
+
+
+@pytest.mark.parametrize("case", DQ_ORDER_CASES, ids=str)
+def test_flash_bwd_dq_adders_are_a_run_from_the_first(case):
+    """For every q tile, the key blocks the backward kernel runs over it
+    are lo, lo + 1, .., hi with lo the one its dQ counter lets add first,
+    so that each rank 0 .. hi - lo is taken once and the adds wait only
+    on blocks issued before them; and they hold every key the masks keep
+    for the tile's rows, so that no pair's gradient is left out."""
+    Sq, Skv, causal, window = case
+    nqt, nkt = -(-Sq // BWD_BM), -(-Skv // BWD_BN)
+    runs = {qt: [] for qt in range(nqt)}
+    for kt in range(nkt):
+        for qt in bwd_q_tiles(kt * BWD_BN, Sq, Skv, causal, window):
+            runs[qt].append(kt)
+    keys = torch.arange(Skv)[None, :]
+    for qt, kts in runs.items():
+        qpos = torch.arange(qt * BWD_BM, min(qt * BWD_BM + BWD_BM, Sq))[:, None]
+        ok = torch.ones(len(qpos), Skv, dtype=torch.bool)
+        if causal:
+            ok &= keys <= qpos
+        if window > 0:
+            ok &= keys > qpos - window
+        kept = set((keys.expand_as(ok)[ok] // BWD_BN).tolist())
+        assert kept <= set(kts), (qt, sorted(kept), kts)
+        if kts:
+            lo = bwd_dq_first_key_tile(qt, Skv, window)
+            assert kts == list(range(lo, kts[-1] + 1)), (qt, lo, kts)
 
 
 def ssd_mma_emulation(x, dt, a_log, b, c, d, *, chunk):
