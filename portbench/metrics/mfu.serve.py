@@ -1,6 +1,7 @@
 """mfu.serve: the model FLOPs of the measured window's batches (prefill
 and decode steps, `roofline.counts.serve_flops`) over the host time of
-their ``generate`` calls (untraced) at the H100's dense bf16 peak, in %."""
+their ``generate`` calls (untraced) at the dense bf16 peak of the
+window's H100s (``chips`` of them), in %."""
 from portbench.roofline import counts
 
 NAME, UNIT, LAYER, MOVES = "mfu.serve", "%", "serving engine", "ttft_p95_s"
@@ -13,5 +14,5 @@ def read(rec):
     steps_a_batch = w["decode_steps"] / w["batches"]
     flops = counts.serve_flops(c["family"], c["m"], w["rows"], w["seq"],
                                steps_a_batch)
-    return 100.0 * flops * w["batches"] / (sum(w["serve_s"])
-                                           * counts.PEAK_FLOPS_BF16)
+    return 100.0 * flops * w["batches"] / (
+        sum(w["serve_s"]) * (w["chips"] * counts.PEAK_FLOPS_BF16))

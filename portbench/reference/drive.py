@@ -2,18 +2,26 @@
 seeded state, or reads its logits over served prompts and tokens.
 
 Both work in blocks of rows so that they fit the card beside nothing
-else: they run once the program's state has been freed.
+else: they run once the program's state has been freed. A model family's
+reference is the module ``reference/<family>.py`` (`family`), so that a
+new family comes as a new file.
 """
 from __future__ import annotations
 
+import importlib
 import math
 
 import torch
 
 from portbench.reference import common as C
-from portbench.reference import dense, ssm
 
-FAMILIES = {"dense": dense, "ssm": ssm}
+
+def family(name: str):
+    """The plain reference of model family `name`: the module
+    ``reference/<name>.py``, with ``layout(m)`` (the parameter tree's
+    shapes and initial distributions), ``nll_sum(m, P, tokens, labels,
+    q)`` and ``last_logits(m, P, tokens, n_last, q)``."""
+    return importlib.import_module(f"portbench.reference.{name}")
 
 
 def _split(params: dict) -> tuple:
@@ -51,7 +59,7 @@ def _leaf_grad_norms(P: dict) -> dict:
     return out
 
 
-def follow_train(family: str, m: dict, seed: int, batches, opt: dict,
+def follow_train(family_name: str, m: dict, seed: int, batches, opt: dict,
                  precision: str = "float32", rows: int = 1,
                  device="cuda", keep_rows=None) -> dict:
     """The reference's run of the steps whose batches `batches` lists
@@ -62,7 +70,7 @@ def follow_train(family: str, m: dict, seed: int, batches, opt: dict,
     global norm, "first_grad": {leaf: norm of the first step's
     gradient}, "change": {leaf: norm of the change over the steps}}."""
     C.no_tf32()
-    fam = FAMILIES[family]
+    fam = family(family_name)
     q = C.PRECISIONS[precision]
     layout = fam.layout(m)
     params = C.init_params(layout, seed, device)
@@ -93,14 +101,14 @@ def follow_train(family: str, m: dict, seed: int, batches, opt: dict,
     return out
 
 
-def served_logits(family: str, m: dict, params: dict, rows: torch.Tensor,
-                  n_served: int, precision: str = "float32",
-                  block: int = 4) -> torch.Tensor:
+def served_logits(family_name: str, m: dict, params: dict,
+                  rows: torch.Tensor, n_served: int,
+                  precision: str = "float32", block: int = 4) -> torch.Tensor:
     """float32 logits (R, n_served, V) at the positions where the served
     tokens were chosen: `rows` (R, S + n_served - 1) are each prompt
     followed by all but the last served token."""
     C.no_tf32()
-    fam = FAMILIES[family]
+    fam = family(family_name)
     q = C.PRECISIONS[precision]
     P, _ = _split(params)
     with torch.no_grad():

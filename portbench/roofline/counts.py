@@ -20,8 +20,14 @@ implements it, at the peak of the inputs' dtype.
 - Forward kernels (flash attention with its log-sum-exp, the SSD scan)
   as cost.py counts them.
 - Every bound at bf16's rates: 989 TFLOP/s dense and 3.35 TB/s.
+
+A model family's parameter and token-mixing counts, which the model
+FLOPs take, sit in a module of their own, ``roofline/<family>.py``
+(`family`), so that a new family comes as a new file.
 """
 from __future__ import annotations
+
+import importlib
 
 PEAK_FLOPS_BF16 = 989e12      # H100 SXM data sheet, dense bf16
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
@@ -101,61 +107,48 @@ def ssd_bwd(B, S, H, P, N, Q, item=BF16) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# Model FLOPs (mfu)
+# Model FLOPs (mfu), by family
 # ---------------------------------------------------------------------------
 
-def param_count(family: str, m: dict) -> int:
+def family(name: str):
+    """The counts of model family `name`: the module ``roofline/<name>.py``
+    with ``param_count(m)``, ``active_params(m)`` (the parameters one
+    token's forward uses: all of them but in a sparse model),
+    ``embed_params(m)`` and ``mixing_fwd_flops(m, rows, S)`` (the
+    forward's token-mixing products over `rows` sequences of S)."""
+    return importlib.import_module(f"portbench.roofline.{name}")
+
+
+def param_count(family_name: str, m: dict) -> int:
     """Parameters of the configuration (tied embeddings counted once)."""
-    if family == "dense":
-        d, L, H, KV = (m["hidden_size"], m["num_hidden_layers"],
-                       m["num_attention_heads"], m["num_key_value_heads"])
-        Dh, F, V = m["head_dim"], m["intermediate_size"], m["vocab_size"]
-        per = d * (H + 2 * KV) * Dh + H * Dh * d + 3 * d * F + 2 * d
-        return L * per + V * d + d
-    if family == "ssm":
-        d, L, N, K, V = (m["d_model"], m["n_layer"], m["d_state"],
-                         m["d_conv"], m["vocab_size"])
-        di = m["expand"] * d
-        H = di // m["headdim"]
-        conv = di + 2 * N
-        per = (d * (2 * di + 2 * N + H) + K * conv + conv + 3 * H + di
-               + di * d + d)
-        return L * per + V * d + d
-    raise ValueError(family)
+    return family(family_name).param_count(m)
 
 
-def mixing_fwd_flops(family: str, m: dict, rows: int, S: int) -> int:
-    """The forward's token-mixing products over `rows` sequences of S:
-    attention's score and value products over the causal pairs, or the
-    SSD's chunked products."""
-    if family == "dense":
-        return (m["num_hidden_layers"] * 4 * rows * m["num_attention_heads"]
-                * m["head_dim"] * causal_pairs(S))
-    di = m["expand"] * m["d_model"]
-    Q = min(m["chunk_size"], S)
-    return m["n_layer"] * ssd_products(rows, S, di // m["headdim"],
-                                       m["headdim"], m["d_state"], Q)
+def mixing_fwd_flops(family_name: str, m: dict, rows: int, S: int) -> int:
+    return family(family_name).mixing_fwd_flops(m, rows, S)
 
 
-def train_step_flops(family: str, m: dict, rows: int, S: int) -> float:
-    """Model FLOPs of one training step: 6 × parameters × tokens, plus
-    3 × the forward's token-mixing products (no recompute counted)."""
-    return (6.0 * param_count(family, m) * rows * S
-            + 3 * mixing_fwd_flops(family, m, rows, S))
+def embed_params(family_name: str, m: dict) -> int:
+    return family(family_name).embed_params(m)
 
 
-def embed_params(family: str, m: dict) -> int:
-    return m["vocab_size"] * (m["hidden_size"] if family == "dense"
-                              else m["d_model"])
+def train_step_flops(family_name: str, m: dict, rows: int, S: int) -> float:
+    """Model FLOPs of one training step: 6 × the active parameters ×
+    tokens, plus 3 × the forward's token-mixing products (no recompute
+    counted)."""
+    fam = family(family_name)
+    return (6.0 * fam.active_params(m) * rows * S
+            + 3 * fam.mixing_fwd_flops(m, rows, S))
 
 
-def serve_flops(family: str, m: dict, rows: int, S: int,
+def serve_flops(family_name: str, m: dict, rows: int, S: int,
                 decode_steps: int) -> float:
     """Model FLOPs of serving `rows` prompts of S tokens: the prefill (2 ×
-    the parameters outside the embedding a token, the token-mixing
+    the active parameters outside the embedding a token, the token-mixing
     products, and the head at the last position of each row) and
-    `decode_steps` decode steps (2 × every parameter a row)."""
-    n, e = param_count(family, m), embed_params(family, m)
-    prefill = (2.0 * (n - e) * rows * S + mixing_fwd_flops(family, m, rows, S)
+    `decode_steps` decode steps (2 × every active parameter a row)."""
+    fam = family(family_name)
+    n, e = fam.active_params(m), fam.embed_params(m)
+    prefill = (2.0 * (n - e) * rows * S + fam.mixing_fwd_flops(m, rows, S)
                + 2.0 * e * rows)
     return prefill + 2.0 * n * rows * decode_steps

@@ -1,11 +1,22 @@
-"""Small versions of the benchmark's cells for the CPU tests: each
-configuration at the program's smoke widths, its traffic cut to a few
-short rows; the program's configuration is the file's, field for
-field."""
+"""Small versions of the benchmark's cells for the CPU tests, and the
+faults that the tests plant in the program.
+
+Each size comes from the files that define the cell: the configuration
+file's ``small`` widths, the workload file's ``small`` (``model``,
+``traffic``) where the cell needs more, and the traffic kind's
+``SMALL`` (a few short rows); the program's configuration is the
+file's, field for field.
+
+A fault is an importable function of a rank's `harness.Run` that
+patches the program and returns a function that undoes the patch:
+`harness.run_cell(faults=...)` applies it on every rank before its
+set-up, and a spawned rank imports it by name.
+"""
 from __future__ import annotations
 
 import dataclasses
 import sys
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -15,23 +26,6 @@ for p in (str(ROOT / "src"), str(ROOT)):
 
 from portbench import harness  # noqa: E402
 
-SMOKE_MODEL = {
-    "smollm-135m": {"hidden_size": 64, "num_hidden_layers": 2,
-                    "num_attention_heads": 4, "num_key_value_heads": 2,
-                    "head_dim": 16, "intermediate_size": 128,
-                    "vocab_size": 256},
-    "mamba2-2.7b": {"d_model": 64, "n_layer": 2, "vocab_size": 256,
-                    "d_state": 16, "headdim": 32, "chunk_size": 16},
-}
-# serving at a model width whose logits spread as the published ones do
-# (an altered token then reads as far below the best as at full size)
-CELL_MODEL = {"mamba2-2.7b.serve-longdoc": {"d_model": 512}}
-SMALL_TRAFFIC = {
-    "train_steps": {"seq": 32, "global_batch": 4, "microbatch": 2,
-                    "reference_rows": 2, "trace_steps": 1},
-    "serve_open_loop": {"batch": 2, "prompt": 32, "interval_s": 0.02,
-                        "trace_batches": 2, "check_requests": 3},
-}
 SEED = 2**33 + 7            # more than 32 bits, as the driver's seeds are
 
 
@@ -39,16 +33,22 @@ def manifest() -> dict:
     return harness.load_json(ROOT / "BENCHMARK.json")
 
 
-def small(cell: str, dtype: str = "float32") -> dict:
-    """run_cell's keyword arguments for `cell` at the small size, in
-    `dtype` (float32: the program and the reference agree to rounding)."""
+def small(cell: str, dtype: str = "float32", man: dict | None = None,
+          traffic: dict | None = None) -> dict:
+    """run_cell's keyword arguments for `cell` of `man` (the manifest) at
+    the small size, in `dtype` (float32: the program and the reference
+    agree to rounding); `traffic` overrides the small traffic."""
     from repro_torch.configs.registry import get_arch
-    w = harness.cell(manifest(), cell)
+    w = harness.cell(man or manifest(), cell)
     conf = harness.load_json(harness.BENCH / "configs"
                              / f"{w['config']}.json")
-    conf["model"].update(SMOKE_MODEL[w["config"]], **CELL_MODEL.get(cell, {}))
     work = harness.load_json(harness.BENCH / "workloads" / f"{cell}.json")
-    work["traffic"].update(SMALL_TRAFFIC[work["traffic"]["kind"]])
+    more = work.get("small", {})
+    conf["model"].update(conf["small"], **more.get("model", {}))
+    kind = harness.load_module(harness.BENCH / "traffic"
+                               / f"{work['traffic']['kind']}.py")
+    work["traffic"].update(kind.SMALL, **more.get("traffic", {}),
+                           **(traffic or {}))
     cfg = dataclasses.replace(
         get_arch(conf["registry"]).full, dtype=dtype,
         **{f: conf["model"][k] for k, f in conf["port_fields"].items()})
@@ -56,6 +56,59 @@ def small(cell: str, dtype: str = "float32") -> dict:
 
 
 def run_small(cell: str, trace: bool = False, seconds: float = 0.2,
-              dtype: str = "float32") -> dict:
-    return harness.run_cell(manifest(), cell, SEED, seconds, trace, "cpu",
-                            log=lambda *a, **k: None, **small(cell, dtype))
+              dtype: str = "float32", man: dict | None = None,
+              traffic: dict | None = None, **kw) -> dict:
+    man = man or manifest()
+    return harness.run_cell(man, cell, SEED, seconds, trace, "cpu",
+                            log=lambda *a, **k: None,
+                            **small(cell, dtype, man, traffic), **kw)
+
+
+# ---------------------------------------------------------------------------
+# Faults
+# ---------------------------------------------------------------------------
+
+def unchanged_state(run):
+    """AdamW hands back the state it was given."""
+    from repro_torch.train import optimizer as OPT
+    adamw = OPT.UPDATES["adamw"]
+
+    def still(cfg, grads, opt_state, params, step, shardings=None):
+        return params, opt_state, {"grad_norm": OPT.global_norm(grads),
+                                   "lr": OPT.lr_at(cfg, step)}
+    OPT.UPDATES["adamw"] = still
+    return lambda: OPT.UPDATES.__setitem__("adamw", adamw)
+
+
+def half_batch(run):
+    """The loss leaves out the second half of the rows it is given: the
+    mean is taken over the rest."""
+    from repro_torch.models.api import Model
+    loss = Model.loss
+
+    def half(self, params, batch, remat="none", mesh=None):
+        n = batch["tokens"].shape[0] // 2
+        return loss(self, params, {k: v[:n] for k, v in batch.items()},
+                    remat, mesh)
+    Model.loss = half
+    return lambda: setattr(Model, "loss", loss)
+
+
+def rank_1_raises_in_setup(run):
+    """Rank 1 raises in its first training step, which set-up drives."""
+    from repro_torch.core.elastic import ElasticJob
+    step = ElasticJob.train_step
+
+    def raises(self, batch):
+        if run.rank == 1:
+            raise RuntimeError("a fault planted in rank 1's set-up")
+        return step(self, batch)
+    ElasticJob.train_step = raises
+    return lambda: setattr(ElasticJob, "train_step", step)
+
+
+def rank_1_loads_forbidden(run):
+    """Rank 1 holds a module of a forbidden name, a stand-in for the JAX
+    package that a rank-dependent path of the program might load."""
+    if run.rank == 1:
+        sys.modules["flax"] = types.ModuleType("flax")

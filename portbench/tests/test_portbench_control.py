@@ -84,7 +84,7 @@ def test_training_control_reads_above_the_program(cell):
 def test_serving_control_reads_above_the_program(cell):
     kw = portbench_cases.small(cell)
     m, family = kw["conf"]["model"], kw["conf"]["family"]
-    params = C.init_params(drive.FAMILIES[family].layout(m),
+    params = C.init_params(drive.family(family).layout(m),
                            portbench_cases.SEED, "cpu")
     rows = C.token_rows(portbench_cases.SEED, 0, 8, 33, m["vocab_size"],
                         "cpu")

@@ -1,8 +1,8 @@
 """The manifest's rules, each cell's files found by name, the harness's
 refusals, and a whole run of each cell at the small size on the CPU:
 sound, and with each fault the cell can have planted in the program,
-where ``correct`` has to come out false. (One card runs each cell: no
-exchange between cards to leave out.)"""
+where ``correct`` has to come out false. (A cell on several cards, and
+its faults, in `test_portbench_ranks.py`.)"""
 from __future__ import annotations
 
 import re
@@ -40,7 +40,9 @@ def test_manifest_names_units_and_keys():
         assert 0.01 <= m["bound"] <= 0.25
     pairs = [(w["config"], w["traffic"]) for w in MAN["workloads"]]
     assert len(set(pairs)) == len(pairs)
-    assert all(w["chips"] == 1 for w in MAN["workloads"])
+    chips = [w["chips"] for w in MAN["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(len(chips) // 4, 1)
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -142,36 +144,16 @@ def test_small_traced_serve_reads_the_untraced_window(cell):
     want = {m["name"] for m in harness.per_layer(MAN, cell)}
     got = set(res["metrics"])
     assert {"mfu.serve", "decode_step_ms.serve"} <= got <= want
-    small = portbench_cases.SMALL_TRAFFIC["serve_open_loop"]
+    small = portbench_cases.small(cell)["work"]["traffic"]
     assert res["attempted"] > small["trace_batches"] * small["batch"]
 
 
-def _unchanged_state(monkeypatch):
-    from repro_torch.train import optimizer as OPT
-
-    def still(cfg, grads, opt_state, params, step, shardings=None):
-        return params, opt_state, {"grad_norm": OPT.global_norm(grads),
-                                   "lr": OPT.lr_at(cfg, step)}
-    monkeypatch.setitem(OPT.UPDATES, "adamw", still)
-
-
-def _half_batch(monkeypatch):
-    from repro_torch.models.api import Model
-    loss = Model.loss
-
-    def half(self, params, batch, remat="none", mesh=None):
-        n = batch["tokens"].shape[0] // 2
-        return loss(self, params, {k: v[:n] for k, v in batch.items()},
-                    remat, mesh)
-    monkeypatch.setattr(Model, "loss", half)
-
-
-@pytest.mark.parametrize("fault", [_unchanged_state, _half_batch],
+@pytest.mark.parametrize("fault", [portbench_cases.unchanged_state,
+                                   portbench_cases.half_batch],
                          ids=["unchanged_state", "half_batch"])
 @pytest.mark.parametrize("cell", TRAIN)
-def test_training_fault_is_not_correct(cell, fault, monkeypatch):
-    fault(monkeypatch)
-    assert not portbench_cases.run_small(cell)["correct"]
+def test_training_fault_is_not_correct(cell, fault):
+    assert not portbench_cases.run_small(cell, faults=[fault])["correct"]
 
 
 @pytest.mark.parametrize("cell", SERVE)
@@ -185,6 +167,5 @@ def test_altered_token_is_not_correct(cell, monkeypatch):
             self.model.cfg.vocab_size
         return out
     monkeypatch.setattr(ServeEngine, "generate", altered)
-    monkeypatch.setitem(portbench_cases.SMALL_TRAFFIC["serve_open_loop"],
-                        "check_requests", 100)
-    assert not portbench_cases.run_small(cell)["correct"]
+    assert not portbench_cases.run_small(
+        cell, traffic={"check_requests": 100})["correct"]

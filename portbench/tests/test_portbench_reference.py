@@ -17,7 +17,7 @@ def setup(family):
     from repro_torch.models.api import get_model
     kw = portbench_cases.small(CONFIGS[family])
     m = kw["conf"]["model"]
-    layout = drive.FAMILIES[family].layout(m)
+    layout = drive.family(family).layout(m)
     flat = C.init_params(layout, portbench_cases.SEED, "cpu")
     return m, layout, flat, get_model(kw["model_cfg"]), kw["work"]["traffic"]
 
@@ -39,8 +39,8 @@ def test_loss_gradients_and_adamw_step(family):
     loss.backward()
 
     P, ref_leaves = drive._split({k: v.clone() for k, v in flat.items()})
-    nll = drive.FAMILIES[family].nll_sum(m, P, batch["tokens"],
-                                         batch["labels"], C.exact)
+    nll = drive.family(family).nll_sum(m, P, batch["tokens"],
+                                       batch["labels"], C.exact)
     (nll / batch["labels"].numel()).backward()
     close(loss.detach(), nll.detach() / batch["labels"].numel())
     for path, t in leaves.items():

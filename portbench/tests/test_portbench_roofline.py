@@ -103,3 +103,35 @@ def test_bound_takes_the_slower_of_flops_and_bytes():
     assert C.bound_s(989e12, 0) == pytest.approx(1.0)
     assert C.bound_s(0, 3.35e12) == pytest.approx(1.0)
     assert C.bound_s(989e12, 6.7e12) == pytest.approx(2.0)
+
+
+# (rows, seq): (token-mixing products, train step flops, serve flops with 2
+# decode steps), as the counts read before each family's moved into a file
+# of its own (roofline/<family>.py): they must stay bit-equal
+PINNED = {
+    "smollm-135m": ("dense", 134_515_008, 28_311_552, {
+        (32, 4096): (18558788567040, 161463272472576.0, 46418417197056.0),
+        (256, 512): (2323812188160, 112758343335936.0, 30316649840640.0),
+        (4, 4096): (2319848570880, 20182909059072.0, 5802302149632.0),
+        (16, 2048): (2320414801920, 33407971098624.0, 9290079424512.0)}),
+    "mamba2-2.7b": ("ssm", 2_702_579_200, 128_716_800, {
+        (32, 4096): (44530220924928, 2258985428189184.0, 719606973923328.0),
+        (256, 512): (44530220924928, 2258985428189184.0, 722086150012928.0),
+        (4, 4096): (5566277615616, 282373178523648.0, 89950871740416.0),
+        (16, 2048): (11132555231232, 564746357047296.0,
+                     179990285484032.0)}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PINNED))
+def test_family_counts_are_pinned(name):
+    family, n, e, shapes = PINNED[name]
+    model = SMOLLM if family == "dense" else MAMBA
+    assert C.family(family).__name__ == f"portbench.roofline.{family}"
+    assert C.param_count(family, model) == n
+    assert C.family(family).active_params(model) == n
+    assert C.embed_params(family, model) == e
+    for (rows, seq), (mix, train, serve) in shapes.items():
+        assert C.mixing_fwd_flops(family, model, rows, seq) == mix
+        assert C.train_step_flops(family, model, rows, seq) == train
+        assert C.serve_flops(family, model, rows, seq, 2) == serve

@@ -31,6 +31,9 @@ import torch
 from portbench.reference import common as C
 from portbench.reference import drive
 
+# the CPU tests' traffic: two short prompts a batch
+SMALL = {"batch": 2, "prompt": 32, "interval_s": 0.02, "trace_batches": 2,
+         "check_requests": 3}
 WARM = -1            # the warm-up batch's index
 BATCH = "portbench.batch"   # the span of one batch's generate
 
@@ -44,10 +47,13 @@ class ServeDriver:
         from repro_torch.models.api import get_model
         from repro_torch.serve.engine import ServeEngine
 
+        if run.world > 1:
+            raise ValueError(f"{run.name}: serve_open_loop serves from one "
+                             f"card, not {run.world}")
         self.run = run
         t = run.traffic
         self.B, self.S, self.n_new = t["batch"], t["prompt"], t["new_tokens"]
-        self.layout = drive.FAMILIES[run.family].layout(run.m)
+        self.layout = drive.family(run.family).layout(run.m)
         t0 = time.perf_counter()
         params = C.nest(C.init_params(self.layout, run.seed, run.device))
         self.engine = ServeEngine(get_model(run.model_cfg), params=params,
@@ -101,7 +107,7 @@ class ServeDriver:
                 "seq": self.S, "new_tokens": self.n_new,
                 "decode_s": stats["decode_s"],
                 "decode_steps": stats["decode_tokens"] // self.B,
-                "prefill_s": stats["prefill_s"]}
+                "prefill_s": stats["prefill_s"], "chips": self.run.world}
         if tracer is not None:
             tracer.ctx.update(seen)
         return {"attempted": k * self.B, "failed": 0,
